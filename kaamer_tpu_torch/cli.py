@@ -1,0 +1,54 @@
+"""kaamer-db for the torch port (kaamer_tpu/cli.py:kaamer_db_main).
+
+  python -m kaamer_tpu_torch.cli -server -d DB [-p PORT] [-device cuda]
+  python -m kaamer_tpu_torch.cli -make -i proteins.fasta -f fasta -d DB
+
+-make builds the database with the shared kaamer_tpu.index.build.build_db
+(the artifact is the same for both packages).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def _db_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="kaamer-db (torch)")
+    p.add_argument("-server", action="store_true", help="run the server")
+    p.add_argument("-make", dest="make_db", action="store_true",
+                   help="make database")
+    p.add_argument("-p", type=int, default=8321, help="server port")
+    p.add_argument("-device", default="cuda",
+                   help="torch device the server runs on (cuda, cuda:1, cpu)")
+    p.add_argument("-tmp", default="", help="tmp folder for query import")
+    p.add_argument("-i", default="", help="input file")
+    p.add_argument("-f", default="", help="input format (fasta|tsv|embl|gbk|genbank)")
+    p.add_argument("-d", default="", help="database path")
+    return p
+
+
+def kaamer_db_main(argv=None) -> int:
+    args = _db_parser().parse_args(argv)
+    if args.server:
+        if not args.d:
+            print("No db path !")
+            return 1
+        from .server.app import serve
+
+        serve(args.d, args.p, args.device, args.tmp)
+        return 0
+    if args.make_db:
+        if not args.d or not args.i or not args.f:
+            print("-make needs -d, -i and -f !")
+            return 1
+        from kaamer_tpu.index.build import build_db
+
+        build_db(args.d, args.i, args.f, progress=True)
+        return 0
+    _db_parser().print_help()
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(kaamer_db_main())

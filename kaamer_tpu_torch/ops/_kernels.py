@@ -1,0 +1,87 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+The sources compile with nvcc into one shared library with a plain C
+interface, bound with ctypes (pointers and the stream as c_void_p, ints as
+c_int).  The library is rebuilt when any source is newer than it.  Nothing
+here runs at import time, and a failed build or load raises: there is no
+host fallback for a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+LIB_PATH = os.path.join(BUILD_DIR, "libkaamer_kernels.so")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_lock = threading.Lock()
+_lib = None
+# nvcc's diagnostics of the last build (registers, shared memory, spills)
+build_log = ""
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "kt_sw_wavefront": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P, _P, _P]),
+    "kt_sw_traceback": (_I, [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "kt_cuda_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit to build")
+
+
+def build() -> str:
+    """Compile csrc/*.cu into LIB_PATH unless it is up to date; returns the
+    library path.  Raises CalledProcessError (with nvcc's output) on a
+    failed build."""
+    global build_log
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    if (os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH)
+            >= max(os.path.getmtime(s) for s in sources)):
+        return LIB_PATH
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, *sources]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise subprocess.CalledProcessError(proc.returncode, cmd,
+                                            proc.stdout, proc.stderr)
+    os.replace(tmp, LIB_PATH)
+    return LIB_PATH
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _lib = handle
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = lib().kt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
