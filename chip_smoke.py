@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
 """GPU smoke run of the torch port (kaamer_tpu_torch) on one CUDA card.
 
-Drives the port's main path -- protein search, with and without -aln,
-served over HTTP from a domain-skewed database -- and checks it:
+Drives the port's two paths -- the probe microbenchmarks, and protein
+search with and without -aln served over HTTP from a domain-skewed
+database with hot sets on -- and checks them:
 
-  1. builds the CUDA kernels (csrc/*.cu) from the checkout;
-  2. kernel phase: sw_wavefront + sw_traceback on 512 random pairs
+  1. builds the CUDA kernels (csrc/*.cu, one nvcc each, in parallel);
+  2. probe phase: every Pallas probe configuration of the scripts (P1-P6)
+     through the port's entry points (kaamer_tpu_torch.bench.
+     probe_microbench) at the scripts' sizes, then each kernel
+     (row_dma_probe, smem_dyngather) against its plain torch version on
+     the same inputs, exactly, with both timed;
+  3. kernel phase: sw_wavefront + sw_traceback on 512 random pairs
      (30-2048 residues) plus fixed cases, exactly equal to their plain
      torch versions on the card, scores equal to the host DP; times both
      at B=256, m ~ n ~ 250;
-  3. builds (or reuses, .bench_cache/skew_N) the skewed database of
-     bench.build_skewed_db and loads it onto the card;
-  4. serves it with the port's server and POSTs R1 (2048 queries, TSV),
+  4. builds (or reuses, .bench_cache/skew_N) the skewed database of
+     bench.build_skewed_db and loads it onto the card with its hot sets;
+  5. serves it with the port's server and POSTs R1 (2048 queries, TSV),
      R2 (256 queries, align=true) and R3 (64 queries, JSON + positions);
-  5. checks sampled R1 counts against a numpy bincount reference and
+  6. checks sampled R1 counts against a numpy bincount reference and
      sampled R2 alignments against the plain SW versions on the card, and
-     that the main path launched every kernel.
+     that each path launched every one of its kernels;
+  7. serves R1 again from a cold engine (hot=False): the bytes must equal
+     the hot engine's.
 
 Prints the card (nvidia-smi name and power limit), per-request times, one
 JSON line of kernel results, and as its last line
@@ -48,6 +56,18 @@ KERNELS = (
     ("sw_wavefront", "kaamer_tpu/ops/swalign_pallas.py:50"),
     ("sw_traceback", "kaamer_tpu/ops/swalign_pallas.py:166"),
 )
+# the Pallas probes: (probe, the pallas_call it replaces)
+PROBES = (
+    ("P1", "scripts/pallas_dma_probe.py:58"),
+    ("P2", "scripts/pallas_dma_probe.py:99"),
+    ("P3", "scripts/pallas_dma_probe.py:154"),
+    ("P4", "scripts/pallas_dma_probe.py:185"),
+    ("P5", "scripts/probe_microbench.py:217"),
+    ("P6", "scripts/probe_microbench.py:282"),
+)
+# the configuration whose times head a probe's row (the others are listed
+# under "configs"): the scripts' defaults, P4's table size for P5
+PROBE_HEAD = {"P5": {"T": 8192}, "P6": {"depth": 8}}
 
 
 def check(ok, what: str) -> None:
@@ -230,6 +250,67 @@ def kernel_phase(device, rng, n_pairs: int, max_len: int, workers: int):
 
 
 # ---------------------------------------------------------------------------
+# probe phase
+# ---------------------------------------------------------------------------
+
+
+def probe_phase(device, card: str):
+    """P1-P6 through the entry points (the path; launches counted from 0),
+    then each configuration's kernel against its plain version on the
+    same inputs, exactly, and both timed by CUDA events.  Returns the
+    kernels JSON rows of the probes."""
+    from kaamer_tpu_torch.bench import probe_microbench as pmb
+    from kaamer_tpu_torch.ops import probe_bench as pb
+
+    runs = []
+    pb.reset_launches()
+    for label, entry, case, kw in pmb.PALLAS_CONFIGS:
+        before = sum(pb.launches.values())
+        checksum, secs = entry(device, **kw)
+        runs.append((label, case, kw, checksum, secs,
+                     sum(pb.launches.values()) - before))
+    launches = dict(pb.launches)
+    print(f"probe path kernel launches: {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched on the probe path")
+
+    rows = {}
+    for label, case, kw, checksum, secs, n_launch in runs:
+        kernel, plain, args = case(device, **kw)
+        got = int(kernel(*args).item()) & 0xFFFFFFFF
+        want = int(plain(*args).item()) & 0xFFFFFFFF
+        err = abs(got - want)
+        check(err == 0 and checksum & 0xFFFFFFFF == want,
+              f"{label} {kw}: kernel {got}, entry point {checksum}, "
+              f"plain {want}")
+        ms = median_ms(lambda: kernel(*args), 20)
+        plain_ms = median_ms(lambda: plain(*args), 5)
+        work = (args[2] * 128 * args[3] if kernel is pb.smem_dyngather
+                else args[2])
+        unit = "elems" if kernel is pb.smem_dyngather else "rows"
+        print(f"{label} {kernel.__name__} {kw or 'script defaults'}: "
+              f"checksum {got} == plain; entry point best-of-3 {secs} s; "
+              f"kernel {ms} ms ({work / ms / 1e3} M {unit}/s), plain torch "
+              f"{plain_ms} ms (median, CUDA events) [{card}]")
+        row = rows.setdefault(label, {
+            "name": f"{label} {kernel.__name__}", "route": "cuda",
+            "source": "kaamer_tpu_torch/csrc/probe_bench.cu",
+            "launches": 0, "max_abs_err": 0, "configs": []})
+        row["launches"] += n_launch
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["configs"].append({**kw, "launches": n_launch, "ms": ms,
+                               "plain_ms": plain_ms})
+        if kw == PROBE_HEAD.get(label, kw):
+            row["ms"], row["plain_ms"] = ms, plain_ms
+    out = []
+    for label, replaces in PROBES:
+        row = rows[label]
+        check(row["launches"] > 0, f"{label} launched no kernel")
+        out.append({**row, "replaces": replaces})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # serving phase
 # ---------------------------------------------------------------------------
 
@@ -350,27 +431,40 @@ def check_alignments(engine, art, queries, body: bytes, rng, n: int,
     return len(rows)
 
 
-def serve_phase(engine, art, rng, device, card: str):
+class Served:
+    """The port's HTTP server for one engine, on a free local port, for the
+    duration of a with block (which yields the protein search URL)."""
+
+    def __init__(self, engine):
+        from kaamer_tpu_torch.server.app import make_server
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        self.httpd = make_server(engine, 0, tmp, host="127.0.0.1")
+
+    def __enter__(self):
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+        return (f"http://127.0.0.1:{self.httpd.server_address[1]}"
+                "/api/search/protein")
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def serve_phase(engine, art, queries, rng, device, card: str):
     """R1-R3 through the port's HTTP server, then the on-card checks.
-    Returns the kernels' launch counts over R1-R3."""
-    import bench
+    Returns the kernels' launch counts over R1-R3 and the response
+    bodies."""
     from kaamer_tpu_torch.ops import swalign as sw
     from kaamer_tpu_torch.ops import swalign_cuda as swc
-    from kaamer_tpu_torch.server.app import make_server
 
-    queries = bench.make_queries(art, rng, 2048)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    httpd = make_server(engine, 0, tmp, host="127.0.0.1")
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{httpd.server_address[1]}/api/search/protein"
     requests = (
         ("R1", 2048, {}),
         ("R2", 256, {"align": "true"}),
         ("R3", 64, {"output-format": "json", "positions": "true"}),
     )
     bodies = {}
-    try:
+    with Served(engine) as url:
         swc.reset_launches()
         host_before = sw.HOST_DP_PAIRS
         for name, n, extra in requests:
@@ -391,9 +485,6 @@ def serve_phase(engine, art, rng, device, card: str):
                   f"{n_hits} hits, {len(body)} bytes, wall {wall} s, "
                   f"{n / wall} queries/s [{card}]")
         launches = dict(swc.launches)
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
     print(f"main-path kernel launches: {launches}; host-DP pairs "
           f"(routing rule): {sw.HOST_DP_PAIRS - host_before}")
     for name, _ in KERNELS:
@@ -404,7 +495,25 @@ def serve_phase(engine, art, rng, device, card: str):
           f"bincount reference")
     n = check_alignments(engine, art, queries, bodies["R2"], rng, 256, device)
     print(f"R2 check: {n} sampled alignments == plain SW on the card")
-    return launches
+    return launches, bodies
+
+
+def cold_pass(art, device, queries, r1_body: bytes, card: str) -> None:
+    """R1 again from SearchEngine(art, device, hot=False): both engines
+    are exact, so the response bytes must be equal."""
+    from kaamer_tpu_torch.search.engine import SearchEngine
+
+    cold = SearchEngine(art, device, hot=False)
+    check(cold.hot_starts is None, "the cold engine holds hot sets")
+    with Served(cold) as url:
+        status, body, wall = post(url, {"type": "string",
+                                        "sequence": fasta("r_", queries)})
+    check(status == 200, f"cold R1: HTTP {status}")
+    print(f"cold R1 (hot=False): {len(queries)} queries, {len(body)} bytes, "
+          f"wall {wall} s, {len(queries) / wall} queries/s, chunks "
+          f"{cold.stats} [{card}]")
+    check(body == r1_body, "cold R1 bytes != hot R1 bytes")
+    print("cold R1 bytes == hot R1 bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +553,7 @@ def main() -> int:
     print("\n".join(ln for ln in _kernels.build_log.splitlines()
                     if "registers" in ln or "bytes smem" in ln))
 
+    probe_rows = probe_phase(device, card)
     rng = np.random.default_rng(2026)
     kern = kernel_phase(device, rng, 512, 2048, min(8, os.cpu_count() or 1))
 
@@ -456,17 +566,32 @@ def main() -> int:
     t0 = time.perf_counter()
     engine = SearchEngine(art, device)
     torch.cuda.synchronize(device)
+    check(engine.hot_starts is not None, "the served engine has no hot sets")
     print(f"engine on {device} in {time.perf_counter() - t0} s, "
-          f"{torch.cuda.memory_allocated(device)} bytes resident")
+          f"{torch.cuda.memory_allocated(device)} bytes resident; "
+          f"{engine.hot_starts.shape[0]} hot sets (len >= "
+          f"{engine.hot_thresh}), M {tuple(engine.M.shape)} "
+          f"{engine.M.dtype} {engine.M.numel() * engine.M.element_size()} "
+          f"bytes")
 
-    launches = serve_phase(engine, art, rng, device, card)
+    queries = bench.make_queries(art, rng, 2048)
+    for key in engine.stats:
+        engine.stats[key] = 0
+    launches, bodies = serve_phase(engine, art, queries, rng, device, card)
+    print(f"hot engine over R1-R3 and the checks: chunks hot "
+          f"{engine.stats['hot']}, cold {engine.stats['cold']}, legacy "
+          f"{engine.stats['legacy']}; certificate re-run rows "
+          f"{engine.stats['rerun_rows']}")
+    check(engine.stats["hot"] > 0, "no hot chunk was served")
+    del engine
+    cold_pass(art, device, queries, bodies["R1"], card)
     check("jax" not in sys.modules, "the port imported jax")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "kaamer_tpu_torch/csrc/swalign.cu", "replaces": replaces,
          "launches": launches[name], **kern[name]}
-        for name, replaces in KERNELS]}))
+        for name, replaces in KERNELS] + probe_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,8 @@ _SIGNATURES = {
     "kt_sw_wavefront": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _P, _P, _P]),
     "kt_sw_traceback": (_I, [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "kt_row_dma_probe": (_I, [_P, _I, _P, _I, _I, _I, _I, _P, _P]),
+    "kt_smem_dyngather": (_I, [_P, _P, _I, _I, _P, _P]),
     "kt_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -46,23 +48,42 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu into LIB_PATH unless it is up to date; returns the
-    library path.  Raises CalledProcessError (with nvcc's output) on a
-    failed build."""
+    library path.  One nvcc per source, all started together, then one
+    link.  Raises CalledProcessError (with nvcc's output) on a failed
+    build."""
     global build_log
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     if (os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH)
             >= max(os.path.getmtime(s) for s in sources)):
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise subprocess.CalledProcessError(proc.returncode, cmd,
-                                            proc.stdout, proc.stderr)
-    os.replace(tmp, LIB_PATH)
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in sources]
+    cmds = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-c", "-o", o, s]
+            for s, o in zip(sources, objs)]
+    tmp = f"{LIB_PATH}.{tag}.tmp"
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    try:
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise subprocess.CalledProcessError(proc.returncode, cmd, log)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        build_log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise subprocess.CalledProcessError(proc.returncode, link,
+                                                proc.stdout, proc.stderr)
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return LIB_PATH
 
 

@@ -114,6 +114,34 @@ def expand_hybrid(postings, offs, cum_s, wstart, cum_t, lens_l,
     return rows, seg, valid, w
 
 
+def sort_weighted(rows: torch.Tensor, weights: torch.Tensor):
+    """Sort each row's (row, weight) entries by row, then weight, as one
+    int64 key (row << 32) | weight: ROW_SENTINEL entries get the largest
+    key and sort last, with weight 0.  Returns (s, w) int64[B, n]."""
+    key = torch.where(rows == ROW_SENTINEL, _KEY_SENTINEL,
+                      (rows << 32) | weights)
+    ks = torch.sort(key, dim=1).values
+    sent = ks == _KEY_SENTINEL
+    return (torch.where(sent, ROW_SENTINEL, ks >> 32),
+            torch.where(sent, 0, ks & 0xFFFFFFFF))
+
+
+def rle_weighted(s: torch.Tensor, w: torch.Tensor):
+    """Weighted run-length encoding of sorted rows s: each run's weight sum
+    at its start lane, ROW_SENTINEL runs excluded.  Returns (counts
+    int64[B, n], is_start bool[B, n]).  The run sums need no gathers:
+    each lane backward-fills its run's inclusive-cumsum endpoint (the
+    nearest future endpoint is the minimum over future endpoints, since
+    the cumsum is nondecreasing)."""
+    edge = torch.ones_like(s[:, :1], dtype=torch.bool)
+    differs = s[:, 1:] != s[:, :-1]
+    is_start = torch.cat([edge, differs], dim=1) & (s != ROW_SENTINEL)
+    change_next = torch.cat([differs, edge], dim=1)
+    wc = torch.cumsum(w, dim=1)
+    wc_end = _rev_cummin(torch.where(change_next, wc, 2**62))
+    return torch.where(is_start, wc_end - wc + w, 0), is_start
+
+
 def sort_rle(rows: torch.Tensor, weights=None):
     """Sort each row multiset and run-length encode it (count.py:sort_rle).
 
@@ -126,33 +154,20 @@ def sort_rle(rows: torch.Tensor, weights=None):
     packed row << bits | w key and the two-operand sort): with int64 keys,
     (row << 32) | w always fits for rows < 2^31, and since RLE sums the
     weights of a run, the order among equal rows does not change any
-    count.  Sentinel entries get the largest key and sort last."""
+    count."""
+    if weights is not None:
+        s, w = sort_weighted(rows, weights)
+        counts, is_start = rle_weighted(s, w)
+        return s, counts.to(torch.int32), is_start
     cap = rows.shape[1]
-    if weights is None:
-        s = torch.sort(rows, dim=1).values
-    else:
-        key = torch.where(rows == ROW_SENTINEL, _KEY_SENTINEL,
-                          (rows << 32) | weights)
-        ks = torch.sort(key, dim=1).values
-        sent = ks == _KEY_SENTINEL
-        s = torch.where(sent, ROW_SENTINEL, ks >> 32)
-        w = torch.where(sent, 0, ks & 0xFFFFFFFF)
-
+    s = torch.sort(rows, dim=1).values
     idx = torch.arange(cap, device=rows.device)[None, :]
     edge = torch.ones_like(s[:, :1], dtype=torch.bool)
     differs = s[:, 1:] != s[:, :-1]
     is_start = torch.cat([edge, differs], dim=1) & (s != ROW_SENTINEL)
     change_next = torch.cat([differs, edge], dim=1)
-    if weights is None:
-        run_end = _rev_cummin(torch.where(change_next, idx, cap))
-        counts = torch.where(is_start, run_end - idx + 1, 0)
-    else:
-        # weighted run sums without gathers: backward-fill each run's
-        # inclusive-cumsum endpoint (the nearest future endpoint is the
-        # minimum over future endpoints, since wc is nondecreasing)
-        wc = torch.cumsum(w, dim=1)
-        wc_end = _rev_cummin(torch.where(change_next, wc, 2**62))
-        counts = torch.where(is_start, wc_end - wc + w, 0)
+    run_end = _rev_cummin(torch.where(change_next, idx, cap))
+    counts = torch.where(is_start, run_end - idx + 1, 0)
     return s, counts.to(torch.int32), is_start
 
 

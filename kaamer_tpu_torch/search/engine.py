@@ -1,21 +1,25 @@
-"""Batched search engine on torch tensors (kaamer_tpu/search/engine.py),
-cold path.
+"""Batched search engine on torch tensors (kaamer_tpu/search/engine.py).
 
 The pipeline is the JAX engine's, on one explicit device:
 
   host: pack queries to the base-22 wire format (native packer)
   dev : phase 1 -- unpack, encode 7-mers, cuckoo probe, run dedup, tier
-        split, exact per-query expansion totals
-  host: group queries by totals into phase-2 chunks (the JAX engine's
-        planner, reused as is)
-  dev : phase 2 per chunk -- two-tier postings expansion, sort, RLE, top-k
-  host: QueryCounts per query (the JAX engine's _finalize_pending)
+        split (hot / short / long runs), exact per-query cold expansion
+        totals
+  host: group queries by totals into phase-2 chunks, hot queries first
+        (the JAX engine's planner, reused as is)
+  dev : phase 2 per chunk -- two-tier postings expansion of the cold runs,
+        sort, RLE, top-k; a chunk holding hot runs adds the dense hot
+        matmul (ops/hotset.py) and the threshold merge with its per-query
+        exactness certificate
+  host: read every certificate of the batch at once, re-run uncertified
+        rows through the exact per-lane merge, build QueryCounts (the JAX
+        engine's _finalize_pending)
 
-Hot sets (the dense matmul path for the longest postings sets) are not
-ported yet: every run expands on the cold path, which gives the same
-counts.  Position bitmaps come from the host binary search, the path the
-JAX engine takes whenever its device bitmaps do not fit
-(_positions_on_device).
+With hot=False every run expands on the cold path, which gives the same
+counts.  Position bitmaps come from the host binary search over each
+query's postings slices (hot runs included), the path the JAX engine takes
+whenever its device bitmaps do not fit (_positions_on_device).
 """
 
 from __future__ import annotations
@@ -29,13 +33,16 @@ from kaamer_tpu import codec as host_codec
 from kaamer_tpu import native
 from kaamer_tpu.index.artifact import DBArtifact
 from kaamer_tpu.search.engine import (
-    CAP_MAX, CAP_MIN, DISPATCH_COST_ROWS, G_QUANTA, KMER_SIZE,
-    MAX_EXPANSION_ELEMS, TOPK_MIN, T_SPLIT, PositionBitmapServing,
+    CAP_MAX, CAP_MIN, DISPATCH_COST_ROWS, G_QUANTA, HBM_BPS,
+    HOT_CHUNK_COST_ROWS, HOT_DENSE_BYTES, KMER_SIZE, MAX_EXPANSION_ELEMS,
+    MXU_FLOPS, PIPE_ROWS_PER_S, TOPK_MIN, T_SPLIT, PositionBitmapServing,
     QueryCounts, _cap_bucket, _cap_bucket_vec, _cap_floor, _finalize_pending,
     _next_pow2, _plan_normal_chunks)
 
 from .. import codec
-from ..ops.count import count_topk, dedup_runs, expand_hybrid, member_np
+from ..ops import hotset
+from ..ops.count import (count_topk, dedup_runs, expand_hybrid, member_np,
+                         sort_rle)
 from ..ops.probe import probe_slices
 
 
@@ -95,16 +102,68 @@ def _phase2_grouped_impl(postings, offs, cum_s, wstart, cum_t, lens_l, *,
     return count_topk(rows, k, weights=w)
 
 
+def _hot_counts(M, hot_starts, offs, whot):
+    """counts_hot of a group: bf16 while counts <= L fit it exactly
+    (L <= 256), float32 beyond (engine.py:1182)."""
+    L = offs.shape[1]
+    W = hotset.hot_weights(offs, whot, hot_starts)
+    return hotset.hot_matmul(
+        W, M, max_w=L,
+        out_dtype=torch.bfloat16 if L <= 256 else torch.float32)
+
+
+def _phase2_hot_impl(postings, M, hot_starts, offs, cum_s, wstart, whot,
+                     cum_t, lens_l, *, cap_s: int, cap_t: int, k: int,
+                     pack_w_bits: int = 0, k_cold: int = 0):
+    """engine.py:_phase2_hot_impl (positions=False) in torch: two-tier cold
+    expansion + dense hot matmul + threshold merge.  Returns (counts
+    int32[G, k], hit_rows int64[G, k], exact bool[G]).  Where the TAM keys
+    cannot hold the row (pack_w_bits == 0, or P >= 2^(31 - bits)) the
+    per-lane merge serves and exact is all True, as in the JAX engine.
+    The JAX function's MT and run_start arguments fed only its device
+    bitmaps and are dropped."""
+    if not (pack_w_bits and M.shape[1] < (1 << (31 - pack_w_bits))):
+        counts, hit_rows = _phase2_hot_legacy_impl(
+            postings, M, hot_starts, offs, cum_s, wstart, whot, cum_t,
+            lens_l, cap_s=cap_s, cap_t=cap_t, k=k)
+        return counts, hit_rows, torch.ones(
+            counts.shape[0], dtype=torch.bool, device=counts.device)
+    rows, _, _, w = expand_hybrid(postings, offs, cum_s, wstart, cum_t,
+                                  lens_l, cap_s, cap_t)
+    counts_hot = _hot_counts(M, hot_starts, offs, whot)
+    return hotset.merge_hot_cold_tam(
+        counts_hot, rows, w, k, pack_w_bits=pack_w_bits,
+        k_cand=max(hotset.CAND_K, k), k_cold=max(k_cold, k))
+
+
+def _phase2_hot_legacy_impl(postings, M, hot_starts, offs, cum_s, wstart,
+                            whot, cum_t, lens_l, *, cap_s: int, cap_t: int,
+                            k: int):
+    """engine.py:_phase2_hot_legacy_impl (positions=False) in torch: the
+    exact per-lane candidate-union merge, used to re-run rows whose TAM
+    certificate fails.  Returns (counts int32[G, k], hit_rows int64[G, k])."""
+    rows, _, _, w = expand_hybrid(postings, offs, cum_s, wstart, cum_t,
+                                  lens_l, cap_s, cap_t)
+    s, cold_counts, is_start = sort_rle(rows, weights=w)
+    counts_hot = _hot_counts(M, hot_starts, offs, whot)
+    return hotset.merge_hot_cold(counts_hot, s, cold_counts, is_start, k)
+
+
 class _HostFetch:
     """The device_get that _finalize_pending calls: one pass moving every
-    chunk's (counts, hit_rows) to the host, as int32 counts and uint32
-    rows (the JAX engine's host dtypes)."""
+    chunk's outputs to the host in the JAX engine's host dtypes -- int64
+    rows as uint32, int32 counts as int32, the bool certificate as bool."""
 
     @staticmethod
-    def device_get(tree):
-        return [[t.cpu().numpy().astype(np.uint32 if t.dtype == torch.int64
-                                         else np.int32, copy=False)
-                 for t in outs] for outs in tree]
+    def _host(t: torch.Tensor) -> np.ndarray:
+        a = t.cpu().numpy()
+        if t.dtype == torch.int64:
+            return a.astype(np.uint32)
+        return a if t.dtype == torch.bool else a.astype(np.int32, copy=False)
+
+    @classmethod
+    def device_get(cls, tree):
+        return [[cls._host(t) for t in outs] for outs in tree]
 
 
 class _BatchIds:
@@ -125,17 +184,14 @@ class _BatchIds:
 
 class SearchEngine(PositionBitmapServing):
     """Holds the device-resident index on one device and runs batched
-    searches (the JAX SearchEngine's cold path)."""
+    searches, with hot sets (the dense matmul path for the longest
+    postings sets) on by default, as in the JAX engine."""
 
     # sub-batch and group widths of the JAX engine's planner
     RERUN_B = 16
     GROUP_B = 256
 
-    def __init__(self, art: DBArtifact, device, hot: bool = False):
-        if hot:
-            raise NotImplementedError(
-                "hot sets are not ported yet (ROADMAP Queue 1 item 4, "
-                "ops/hotset.py); construct with hot=False")
+    def __init__(self, art: DBArtifact, device, hot: bool = True):
         if not art.indexed:
             raise ValueError("database is not indexed; run index_db first")
         if getattr(art, "index_shards", 0):
@@ -160,6 +216,36 @@ class SearchEngine(PositionBitmapServing):
         self.n_sets = int(so.size - 1)
         self.miss_start = int(so[-1]) if so.size else 0
         self.hash_log2 = art.hash_log2
+        # dispatched phase-2 chunks by kind and certificate re-run rows
+        self.stats = {"cold": 0, "hot": 0, "legacy": 0, "rerun_rows": 0}
+
+        # hot sets (engine.py:476-515): None => every run is cold
+        self.hot_starts = None
+        self.hot_thresh = 1 << 30
+        self.M = None
+        self._hot_chunk_rows = HOT_CHUNK_COST_ROWS
+        self._hot_lane_rows = 0
+        h_max = 2048 if art.num_proteins <= (1 << 18) else 1024
+        sel = (hotset.select_hot_sets(so, art.num_proteins, h_max=h_max)
+               if hot else None)
+        if sel is not None:
+            hot_starts_np, self.hot_thresh, P_pad = sel
+            self.hot_starts = torch.from_numpy(
+                hot_starts_np.astype(np.int64)).to(self.device)
+            self.M = hotset.build_membership(self.postings_np, so,
+                                             hot_starts_np, P_pad,
+                                             self.device)
+            # the JAX engine's planner economics, from its constants
+            H = int(hot_starts_np.shape[0])
+            self._hot_chunk_rows = int(
+                2 * H * P_pad / HBM_BPS * PIPE_ROWS_PER_S) + (1 << 16)
+            self._hot_lane_rows = int(
+                (2 * H * P_pad / MXU_FLOPS + 4 * P_pad / HBM_BPS)
+                * PIPE_ROWS_PER_S)
+        # cold-candidate width of the TAM merge (engine.py:556-558)
+        P = art.num_proteins
+        self._k_cold = 64 if P <= (1 << 15) else (
+            128 if P <= (1 << 18) else 1024)
 
     def count_batch(self, seqs: Sequence[str], sizes: Sequence[int], k: int,
                     positions: bool = False) -> List[QueryCounts]:
@@ -186,29 +272,42 @@ class SearchEngine(PositionBitmapServing):
                                device=self.device)
         outs1 = _phase1_impl(self.table, codes, n_kmers,
                              hash_log2=self.hash_log2,
-                             miss_start=self.miss_start, width=width)
-        return (outs1, list(sizes), k)
+                             miss_start=self.miss_start,
+                             hot_thresh=self.hot_thresh, width=width)
+        return (outs1, list(sizes), k, L)
 
     def resolve_batch(self, handle, min_top: int = 0) -> List[QueryCounts]:
         return self.collect_batch(self.schedule_batch(handle), min_top)
 
-    def _quantized_groups(self, cap: int, B: int) -> List[int]:
-        """Phase-2 group widths for this cap: G_QUANTA within the
-        expansion budget."""
+    def _hot_g_max(self, L: int) -> int:
+        """Largest (pow2) hot-group width within the dense-path budget
+        (engine.py:643-648)."""
+        H = int(self.hot_starts.shape[0])
+        per_g = 4 * max(int(self.M.shape[1]), L * H)
+        return max(16, 1 << max(0, (HOT_DENSE_BYTES // per_g).bit_length() - 1))
+
+    def _quantized_groups(self, cap: int, B: int, hot: bool,
+                          L: int) -> List[int]:
+        """Phase-2 group widths for this (cap, hot, L): G_QUANTA within the
+        expansion and dense-path budgets, plus the 1024 rung for hot
+        groups (engine.py:650-664)."""
         g_budget = max(16, 1 << (MAX_EXPANSION_ELEMS // cap).bit_length() - 1)
-        return [g for g in G_QUANTA if g <= min(g_budget, B) or g == 16]
+        quanta = G_QUANTA
+        if hot and self.hot_starts is not None:
+            g_budget = min(g_budget, self._hot_g_max(L))
+            quanta = tuple(sorted(set(G_QUANTA) | {1024}))
+        return [g for g in quanta if g <= min(g_budget, B) or g == 16]
 
     def schedule_batch(self, handle):
         """Group the batch's queries by their exact phase-1 totals and
-        enqueue every phase-2 chunk (the JAX engine's schedule_batch without
-        hot chunks or warmup cap pinning): outliers above the group budget
-        run in narrow chunks at the pow2 cap they need, beyond CAP_MAX a
-        query is counted on the host."""
+        enqueue every phase-2 chunk (the JAX engine's schedule_batch
+        without warmup cap pinning): hot queries first, outliers above the
+        group budget in narrow chunks at the pow2 cap they need, beyond
+        CAP_MAX a query counted on the host."""
         if handle is None:
             return None
-        outs1, sizes, k = handle
-        ts_h = outs1[7].cpu().numpy()
-        tt_h = outs1[8].cpu().numpy()
+        outs1, sizes, k, L = handle
+        ts_h, tt_h, hot_h = (outs1[i].cpu().numpy() for i in (7, 8, 9))
         # effective expansion volume: tile rows pay 128 sort lanes each
         totals_h = ts_h + 128 * tt_h
         B = len(sizes)
@@ -217,14 +316,16 @@ class SearchEngine(PositionBitmapServing):
         results: Dict[int, QueryCounts] = {}
 
         limit_g = _cap_floor(MAX_EXPANSION_ELEMS // min(self.GROUP_B, B))
-        order = np.argsort(-totals_h, kind="stable").tolist()
+        order = np.lexsort((-totals_h, hot_h == 0)).tolist()
         totals_l = totals_h.tolist()
         ts_l = ts_h.tolist()
         tt_l = tt_h.tolist()
+        use_hot = self.hot_starts is not None
+        hot_l = (hot_h > 0).tolist() if use_hot else [False] * B
         caps_l = np.minimum(_cap_bucket_vec(totals_h), limit_g).tolist()
         normal: List[int] = []
         heavy: List[int] = []
-        chunks: List[tuple] = []  # (rows, G, rerun)
+        chunks: List[tuple] = []  # (rows, G, rerun, hot)
         for i in order:
             t = totals_l[i]
             if t > CAP_MAX:
@@ -247,14 +348,17 @@ class SearchEngine(PositionBitmapServing):
                 score = (DISPATCH_COST_ROWS + waste) / take
                 if best is None or score < best:
                     G_c, best = g, score
-            chunks.append((heavy[c0 : c0 + G_c], G_c, True))
+            rows = heavy[c0 : c0 + G_c]
+            chunks.append((rows, G_c, True, any(hot_l[i] for i in rows)))
             c0 += G_c
 
         planned = _plan_normal_chunks(
-            normal, totals_l, [False] * B, caps_l, 0,
-            lambda cap_c, hot0: self._quantized_groups(cap_c, B),
-            lambda: 0)
-        chunks.extend((rows, G_c, False) for rows, G_c, _, _ in planned)
+            normal, totals_l, hot_l, caps_l, 0,
+            lambda cap_c, hot0: self._quantized_groups(cap_c, B, hot0, L),
+            lambda: self._hot_lane_rows,
+            hot_chunk_rows=self._hot_chunk_rows, hot_row_cost=1)
+        chunks.extend((rows, G_c, False, hot)
+                      for rows, G_c, _, hot in planned)
 
         def tier_caps(rows, rerun):
             max_s = max(ts_l[i] for i in rows)
@@ -265,7 +369,7 @@ class SearchEngine(PositionBitmapServing):
             return cs, ct
 
         pending = []
-        for rows, G_c, rerun in chunks:
+        for rows, G_c, rerun, hot in chunks:
             cap_s, cap_t = tier_caps(rows, rerun)
             cap_e = cap_s + 128 * cap_t
             # per-tier buckets can overshoot the planner's budget: re-split
@@ -277,34 +381,127 @@ class SearchEngine(PositionBitmapServing):
                     sub = rows[s0 : s0 + g_ok]
                     cs, ct = tier_caps(sub, rerun)
                     pending.append((sub, self._dispatch_group(
-                        outs1, sub, cs, ct, k_full)))
+                        outs1, sub, cs, ct, k_full, L, hot)))
                 continue
             pending.append((rows, self._dispatch_group(
-                outs1, rows, cap_s, cap_t, k_full)))
-        return [pending, results, sizes, B, batch_ids]
+                outs1, rows, cap_s, cap_t, k_full, L, hot)))
+        rerun_ctx = (outs1, ts_l, tt_l, k_full, L)
+        # [..., n_primary (set by prefetch_batch), the min_top it gated]
+        return [pending, results, sizes, B, batch_ids, rerun_ctx, None, None]
+
+    def prefetch_batch(self, sched, min_top: int = 0):
+        """Read every certificate of the batch in one transfer, dispatch
+        the legacy re-run chunks of the rows they fail, and finalize the
+        primary chunks (engine.py:820-854).  The min_top it gates with is
+        stored in sched; collect_batch must be called with the same."""
+        if sched is None or sched[6] is not None:
+            return sched
+        pending, results, sizes, B, batch_ids, rerun_ctx = sched[:6]
+        hot_items = [(rows, item[0][2]) for rows, item in pending
+                     if len(item) > 2 and item[2]]
+        flagged: List[int] = []
+        if hot_items:
+            exact = torch.cat([ex for _, ex in hot_items]).cpu().tolist()
+            j = 0
+            for rows, _ in hot_items:
+                flagged += [i for n, i in enumerate(rows)
+                            if not exact[j + n] and i not in results]
+                j += len(rows)
+        n_primary = len(pending)
+        if flagged:
+            self.stats["rerun_rows"] += len(flagged)
+            pending.extend(self._dispatch_legacy(rerun_ctx, flagged))
+        _finalize_pending(_HostFetch, pending[:n_primary], results, sizes,
+                          B, batch_ids, self, min_top, partial=True)
+        sched[6] = n_primary
+        sched[7] = min_top
+        return sched
 
     def collect_batch(self, sched, min_top: int = 0) -> List[QueryCounts]:
-        """Fetch every phase-2 chunk's outputs and build per-query
-        QueryCounts; min_top > 0 turns rows whose top count is below it
-        into None."""
+        """Finalize the re-run tail and return per-query QueryCounts;
+        min_top > 0 turns rows whose top count is below it into None.
+        Raises ValueError if prefetch_batch gated with another min_top
+        (the JAX engine silently keeps the stale gate, engine.py:836-838)."""
         if sched is None:
             return []
-        pending, results, sizes, B, batch_ids = sched
-        return _finalize_pending(_HostFetch, pending, results, sizes, B,
-                                 batch_ids, self, min_top)
+        sched = self.prefetch_batch(sched, min_top)
+        if sched[7] != min_top:
+            raise ValueError(f"collect_batch(min_top={min_top}) after "
+                             f"prefetch_batch(min_top={sched[7]})")
+        pending, results, sizes, B, batch_ids = sched[:5]
+        return _finalize_pending(_HostFetch, pending[sched[6]:], results,
+                                 sizes, B, batch_ids, self, min_top)
+
+    def _dispatch_legacy(self, rerun_ctx, flagged: List[int]):
+        """Re-dispatch TAM-uncertified rows through the per-lane legacy
+        merge in totals-sorted chunks at pow2 tier caps
+        (engine.py:880-916)."""
+        outs1, ts_l, tt_l, k_full, L = rerun_ctx
+        flagged = sorted(flagged, key=lambda i: -(ts_l[i] + 128 * tt_l[i]))
+        out = []
+        c0 = 0
+        while c0 < len(flagged):
+            rem = len(flagged) - c0
+            head_eff = ts_l[flagged[c0]] + 128 * tt_l[flagged[c0]]
+            G_c, best = self.RERUN_B, None
+            for g in (self.RERUN_B, 64):
+                take = min(g, rem)
+                waste = g * head_eff - sum(
+                    ts_l[i] + 128 * tt_l[i]
+                    for i in flagged[c0 : c0 + take])
+                score = (DISPATCH_COST_ROWS + self._hot_chunk_rows
+                         + 2 * waste) / take
+                if best is None or score < best:
+                    G_c, best = g, score
+            rows = flagged[c0 : c0 + G_c]
+            c0 += G_c
+            cap_s = _next_pow2(max(max(ts_l[i] for i in rows), CAP_MIN))
+            max_t = max(tt_l[i] for i in rows)
+            cap_t = max(32, _next_pow2(max_t)) if max_t else 0
+            out.append((rows, self._dispatch_group(
+                outs1, rows, min(cap_s, CAP_MAX), cap_t, k_full, L,
+                hot=True, legacy=True)))
+        return out
 
     def _dispatch_group(self, outs1, rows: List[int], cap_s: int, cap_t: int,
-                        k_full: int):
+                        k_full: int, L: int, hot: bool = False,
+                        legacy: bool = False):
         """Enqueue one phase-2 chunk over the given batch rows; returns the
-        (outputs, pos_dev, flagged) item _finalize_pending reads."""
+        item _finalize_pending reads: (outputs, pos_dev[, flagged]), where
+        flagged marks hot chunks whose outputs carry the certificate at
+        index 2.  legacy=True routes through the exact per-lane merge."""
         idx = torch.tensor(rows, dtype=torch.int64, device=self.device)
-        offs, cum_s, wstart, _, _, cum_t, lens_l = (
+        offs, cum_s, wstart, _, whot, cum_t, lens_l = (
             t.index_select(0, idx) for t in outs1[:7])
+        hot = hot and self.hot_starts is not None
+        if legacy:
+            self.stats["legacy"] += 1
+            return _phase2_hot_legacy_impl(
+                self.postings, self.M, self.hot_starts, offs, cum_s, wstart,
+                whot, cum_t, lens_l, cap_s=cap_s, cap_t=cap_t,
+                k=k_full), False
+        if hot:
+            self.stats["hot"] += 1
+            return _phase2_hot_impl(
+                self.postings, self.M, self.hot_starts, offs, cum_s, wstart,
+                whot, cum_t, lens_l, cap_s=cap_s, cap_t=cap_t, k=k_full,
+                pack_w_bits=self._pack_w_bits(L),
+                k_cold=self._k_cold), False, True
+        self.stats["cold"] += 1
         k2 = min(k_full, cap_s + 128 * cap_t)
         outs2 = _phase2_grouped_impl(self.postings, offs, cum_s, wstart,
                                      cum_t, lens_l, cap_s=cap_s, cap_t=cap_t,
                                      k=k2)
         return outs2, False, False
+
+    def _pack_w_bits(self, L: int) -> int:
+        """engine.py:_pack_w_bits: the weight field width of the JAX
+        engine's packed sort keys, 0 when rows would not fit.  The port
+        sorts int64 keys everywhere; this picks the TAM merge's branch."""
+        bits = max(int(L).bit_length(), 1)
+        if self.art.num_proteins < (1 << (32 - bits)) - 1:
+            return bits
+        return 0
 
     def _host_bitmaps_np(self, qc: QueryCounts, hit_rows) -> Dict[int, np.ndarray]:
         hits = np.asarray(list(hit_rows), dtype=np.uint32)

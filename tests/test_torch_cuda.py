@@ -5,13 +5,17 @@ Imports no jax, so it also runs where only torch is installed:
     python -m pytest tests/test_torch_cuda.py -q
 
 Without a CUDA device every test here skips (the kernels have no CPU
-mode).  Exact equality: direction bytes, scores and paths are integers."""
+mode).  Exact equality: direction bytes, scores, paths, checksums and
+counts are integers."""
 
 import numpy as np
 import pytest
 import torch
 
 from kaamer_tpu.ops.matrices import LETTER_INDEX, get_matrix_scores
+from kaamer_tpu_torch.bench import probe_microbench as pmb
+from kaamer_tpu_torch.ops import hotset
+from kaamer_tpu_torch.ops import probe_bench as pb
 from kaamer_tpu_torch.ops import swalign_cuda as swc
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
@@ -81,3 +85,57 @@ def test_wrapper_rejects_bad_arguments(cuda):
         swc.sw_wavefront(qc, rc, ql, rl.cpu(), mat, 11, 1)
     with pytest.raises(ValueError):
         swc.sw_wavefront(qc, rc[:, :8].contiguous(), ql, rl, mat, 11, 1)
+
+
+@pytest.mark.parametrize("row_words,n,depth,stage,slot0", [
+    (8, 1, 1, False, False),        # P1
+    (8, 4096, 8, False, False),     # P2
+    (8, 4096, 8, True, False),      # P3
+    (16, 4096, 1, True, True),      # P6 at the scripts' three depths
+    (16, 4096, 8, True, True),
+    (16, 4096, 16, True, True),
+    (16, 1000, 16, True, True),     # n not a multiple of depth
+])
+def test_row_dma_probe_matches_plain(cuda, row_words, n, depth, stage, slot0):
+    table = pmb._table(1 << 19, row_words, cuda)
+    idx = pmb._hash_idx(n, 1 << 19, cuda)
+    if n == 1:
+        idx.fill_(7)
+    before = pb.launches["row_dma_probe"]
+    got = pb.row_dma_probe(table, idx, n, depth, stage, slot0)
+    want = pb.row_dma_probe_plain(table, idx, n, depth, stage, slot0)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert pb.launches["row_dma_probe"] == before + 1
+
+
+@pytest.mark.parametrize("T,inner", [(512, 32), (4096, 32), (8192, 32),
+                                     (8192, 3)])
+def test_smem_dyngather_matches_plain(cuda, T, inner):
+    """P4/P5 at the scripts' table sizes."""
+    x = pmb._table(T, 128, cuda)
+    idx = pmb._hash_idx(T * 128, T, cuda).reshape(T, 128)
+    got = pb.smem_dyngather(x, idx, T, inner)
+    want = pb.smem_dyngather_plain(x, idx, T, inner)
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("L", [256, 512])
+def test_hot_matmul_exact_on_card(cuda, L):
+    """W @ M on the card with counts above 256 at L = 512 (the hi/lo
+    split, float32 output) and the engine's bf16 form at L = 256, against
+    an int64 reference."""
+    rng = np.random.default_rng(L)
+    G, H, P = 64, 96, 4096
+    M = (rng.random((H, P)) < 0.3).astype(np.int64)
+    W = np.zeros((G, H), np.int64)
+    for g in range(G):  # each query's weights sum to <= L, as in the engine
+        h = rng.choice(H, size=8, replace=False)
+        W[g, h] = rng.multinomial(L - int(rng.integers(0, 8)), [1 / 8] * 8)
+    ref = W @ M
+    assert (ref.max() > 256) == (L > 256)
+    out = hotset.hot_matmul(
+        torch.from_numpy(W).float().to(cuda),
+        torch.from_numpy(M).to(torch.bfloat16).to(cuda), max_w=L,
+        out_dtype=torch.bfloat16 if L <= 256 else torch.float32)
+    np.testing.assert_array_equal(out.float().cpu().numpy().astype(np.int64),
+                                  ref)

@@ -140,3 +140,67 @@ def test_phase1_tier_boundary():
                                       err_msg=f"output {k}")
     assert int(got[6].max()) == je.T_SPLIT + 1   # lens_l: long runs kept
     assert (got[6][got[6] > 0] >= je.T_SPLIT).all()
+
+
+@pytest.fixture(scope="module")
+def hot_inputs(skew):
+    """Phase 1 of both packages at the JAX engine's hot threshold, with the
+    hot sets and membership matrix of both engines."""
+    art, queries = skew
+    jh = je.SearchEngine(art)
+    th = te.SearchEngine(art, "cpu")
+    assert jh.hot_starts is not None and th.hot_thresh == jh.hot_thresh
+    _, state, want1, got1 = _phase1_both(art, queries, jh.hot_thresh)
+    assert int(got1[9].max()) > 0
+    return jh, th, want1, got1
+
+
+def _hot_group(want1, got1, idx):
+    ts = np.asarray(want1[7])[idx]
+    tt = np.asarray(want1[8])[idx]
+    cap_s = je._cap_bucket(int(ts.max()))
+    cap_t = max(32, je._next_pow2(int(tt.max()))) if tt.max() else 0
+    sel_j = [jnp.take(a, jnp.asarray(idx), axis=0) for a in want1[:7]]
+    sel_t = [a[idx] for a in got1[:7]]
+    return cap_s, cap_t, sel_j, sel_t
+
+
+@pytest.mark.parametrize("rows", [None, [3, 0, 7, 12]])
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("k_cold", [64, 16])
+def test_phase2_hot(hot_inputs, rows, pack, k_cold):
+    """_phase2_hot_impl: all three outputs, certificate included, for the
+    TAM merge's packed and unpacked branches and a starved cold list."""
+    jh, th, want1, got1 = hot_inputs
+    L = want1[0].shape[1]
+    idx = list(range(want1[0].shape[0])) if rows is None else rows
+    cap_s, cap_t, sj, st = _hot_group(want1, got1, idx)
+    pw = jh._pack_w_bits(L) if pack else 0
+    want = je._phase2_hot_impl(jh.postings, jh.M, jh.MT, jh.hot_starts, *sj,
+                               cap_s=cap_s, cap_t=cap_t, k=16, pack_w_bits=pw,
+                               k_cold=k_cold)
+    got = te._phase2_hot_impl(th.postings, th.M, th.hot_starts, st[0], st[1],
+                              st[2], st[4], st[5], st[6], cap_s=cap_s,
+                              cap_t=cap_t, k=16, pack_w_bits=pw, k_cold=k_cold)
+    assert len(got) == len(want) == 3
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(),
+                                  np.asarray(want[1]).astype(np.int64))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    assert int(got[0][:, 0].max()) > 0
+
+
+@pytest.mark.parametrize("rows", [None, [5, 1, 9]])
+def test_phase2_hot_legacy(hot_inputs, rows):
+    jh, th, want1, got1 = hot_inputs
+    idx = list(range(want1[0].shape[0])) if rows is None else rows
+    cap_s, cap_t, sj, st = _hot_group(want1, got1, idx)
+    want = je._phase2_hot_legacy_impl(
+        jh.postings, jh.M, jh.MT, jh.hot_starts, *sj, cap_s=cap_s,
+        cap_t=cap_t, k=16, pack_w_bits=jh._pack_w_bits(want1[0].shape[1]))
+    got = te._phase2_hot_legacy_impl(
+        th.postings, th.M, th.hot_starts, st[0], st[1], st[2], st[4], st[5],
+        st[6], cap_s=cap_s, cap_t=cap_t, k=16)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(),
+                                  np.asarray(want[1]).astype(np.int64))

@@ -13,6 +13,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 import kaamer_tpu.ops.swalign_pallas as swalign_pallas
 from kaamer_tpu.index.artifact import load_db
@@ -110,9 +111,124 @@ def test_nucleotide_not_ported(db):
         b"".join(run_search(engine, o))
 
 
-def test_hot_engine_not_ported(db):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        SearchEngine(db[0], "cpu", hot=True)
+def test_engine_serves_hot_sets(db):
+    """The default engine is hot, like the JAX engine, on the same sets."""
+    art, _, engine, jax_engine = db
+    assert engine.hot_starts is not None and engine.M is not None
+    np.testing.assert_array_equal(engine.hot_starts.numpy(),
+                                  np.asarray(jax_engine.hot_starts))
+    assert engine.hot_thresh == jax_engine.hot_thresh
+    np.testing.assert_array_equal(engine.M.float().numpy(),
+                                  np.asarray(jax_engine.M).astype(np.float32))
+
+
+@pytest.mark.parametrize("out_format,positions", [("tsv", False),
+                                                  ("json", True)])
+def test_hot_bytes_equal_cold(db, out_format, positions):
+    art, tmp, engine, _ = db
+    cold = SearchEngine(art, "cpu", hot=False)
+    assert cold.hot_starts is None
+    opts = _opts(tmp / "q.fasta", out_format, positions)
+    before = dict(engine.stats)
+    got = b"".join(run_search(engine, opts))
+    assert got == b"".join(run_search(cold, opts))
+    assert engine.stats["hot"] > before["hot"] and cold.stats["hot"] == 0
+
+
+def _rerun_queries(art, n=48):
+    """Proteins of the database repeated to 120 residues: wide plateaus of
+    hot and cold totals, which a starved cold candidate list cannot
+    certify."""
+    rng = np.random.default_rng(5)
+    out = []
+    for _ in range(n):
+        seq = art.sequence(int(rng.integers(0, art.num_proteins)))
+        out.append((seq * 4)[:120])
+    return out
+
+
+def test_forced_reruns_agree_with_jax(db, tmp_path, monkeypatch):
+    """_k_cold = 1 on both engines starves TAM's cold list: some rows fail
+    the certificate, both engines flag the same rows and re-run them, and
+    the results and run_search bytes stay equal."""
+    art = db[0]
+    engine, jax_engine = SearchEngine(art, "cpu"), JaxEngine(art)
+    flagged = {"port": [], "jax": []}
+    for name, eng in (("port", engine), ("jax", jax_engine)):
+        eng._k_cold = 1
+        orig = eng._dispatch_legacy
+        monkeypatch.setattr(eng, "_dispatch_legacy",
+                            lambda ctx, fl, o=orig, n=name: (
+                                flagged[n].append(sorted(fl)) or o(ctx, fl)))
+    queries = _rerun_queries(art)
+    sizes = [len(q) - 6 for q in queries]
+    got = engine.count_batch(queries, sizes, k=10)
+    want = jax_engine.count_batch(queries, sizes, k=10)
+    assert flagged["port"] == flagged["jax"] and flagged["port"]
+    assert engine.stats["rerun_rows"] == sum(map(len, flagged["port"]))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.hit_rows, b.hit_rows)
+        np.testing.assert_array_equal(a.counts, b.counts)
+    path = tmp_path / "rerun.fasta"
+    path.write_text("".join(f">r{i} rerun\n{q}\n"
+                            for i, q in enumerate(queries)))
+    assert (b"".join(run_search(engine, _opts(path)))
+            == b"".join(jax_run_search(jax_engine, _opts(path))))
+
+
+def test_min_top_gates_with_exact_counts(db):
+    """min_top gating after re-runs uses the exact counts (the JAX test's
+    precedence slip at tests/test_hotset.py:418, written out here: the
+    top count first, then the comparison)."""
+    art = db[0]
+    engine = SearchEngine(art, "cpu")
+    engine._k_cold = 1
+    ref = SearchEngine(art, "cpu", hot=False)
+    queries = _rerun_queries(art)
+    sizes = [len(q) - 6 for q in queries]
+    want = ref.count_batch(queries, sizes, k=10)
+    tops = [int(b.counts[0]) if len(b.counts) else 0 for b in want]
+    min_top = sorted(tops)[len(tops) // 2]
+    gated = engine.resolve_batch(engine.dispatch_batch(queries, sizes, k=10),
+                                 min_top=min_top)
+    assert engine.stats["rerun_rows"] > 0
+    n_kept = 0
+    for g, b, top in zip(gated, want, tops):
+        if top >= min_top:
+            n_kept += 1
+            np.testing.assert_array_equal(g.hit_rows, b.hit_rows)
+            np.testing.assert_array_equal(g.counts, b.counts)
+        else:
+            assert g is None
+    assert 0 < n_kept < len(queries)
+
+
+def test_collect_rejects_another_min_top(db):
+    """prefetch_batch gates with its min_top; a collect_batch with another
+    would return rows gated by the stale value, so it raises."""
+    art = db[0]
+    engine = SearchEngine(art, "cpu")
+    queries = _rerun_queries(art, 8)
+    sizes = [len(q) - 6 for q in queries]
+    sched = engine.prefetch_batch(engine.schedule_batch(
+        engine.dispatch_batch(queries, sizes, k=10)), min_top=5)
+    with pytest.raises(ValueError, match="min_top"):
+        engine.collect_batch(sched, min_top=0)
+    assert len(engine.collect_batch(sched, min_top=5)) == len(queries)
+
+
+def test_host_fetch_keeps_bool_certificates():
+    """A bool certificate comes back as numpy bool: as int32, ~exact is -1
+    or -2, both truthy, and every hot row would read as uncertified."""
+    from kaamer_tpu_torch.search.engine import _HostFetch
+
+    ex = torch.tensor([True, False, True])
+    counts = torch.tensor([[3, 1]], dtype=torch.int32)
+    rows = torch.tensor([[7, 0xFFFFFFFF]], dtype=torch.int64)
+    (c, r, e), = _HostFetch.device_get([[counts, rows, ex]])
+    assert e.dtype == np.bool_ and (~e).tolist() == [False, True, False]
+    assert c.dtype == np.int32 and r.dtype == np.uint32
+    assert r.tolist() == [[7, 0xFFFFFFFF]]
 
 
 def test_server_answers_over_http(db):
