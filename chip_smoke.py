@@ -10,7 +10,9 @@ database with hot sets on -- and checks them:
      through the port's entry points (kaamer_tpu_torch.bench.
      probe_microbench) at the scripts' sizes, then each kernel
      (row_dma_probe, smem_dyngather) against its plain torch version on
-     the same inputs, exactly, with both timed;
+     the same inputs, exactly, with both timed (the kernel's call time and
+     its device time alone), and row_dma_probe at depths 1, 8 and 16 at
+     4096 and 2^20 copies;
   3. kernel phase: sw_wavefront + sw_traceback on 512 random pairs
      (30-2048 residues) plus fixed cases, exactly equal to their plain
      torch versions on the card, scores equal to the host DP; times both
@@ -35,6 +37,7 @@ JSON line of kernel results, and as its last line
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import multiprocessing
 import os
@@ -197,6 +200,30 @@ def median_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time (ms) of the CUDA kernels whose name starts with
+    `kernel` over reps calls of fn, by torch.profiler: the kernel alone,
+    without the host's launch cost.  The profiler may record fewer
+    launches than were made (4 of 20 seen once on the H100); the mean is
+    over those it recorded, and the run fails if it recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key.startswith(kernel)]
+    check(bool(hits), f"profiler recorded no launch of {kernel} in {reps}")
+    return (sum(e.device_time_total for e in hits)
+            / sum(e.count for e in hits) / 1e3)
+
+
 def kernel_phase(device, rng, n_pairs: int, max_len: int, workers: int):
     """Kernels vs plain versions on the card, scores vs the host DP, and
     the timing at B=256, m ~ n ~ 250.  Returns {name: result dict}."""
@@ -254,11 +281,26 @@ def kernel_phase(device, rng, n_pairs: int, max_len: int, workers: int):
 # ---------------------------------------------------------------------------
 
 
+def time_probe(kernel, plain, args):
+    """A probe kernel against its plain version on the same inputs,
+    exactly, then timed: (kernel u32, plain u32, call ms by CUDA events,
+    device ms by torch.profiler, plain ms by CUDA events)."""
+    got = int(kernel(*args).item()) & 0xFFFFFFFF
+    want = int(plain(*args).item()) & 0xFFFFFFFF
+    ms = median_ms(lambda: kernel(*args), 20)
+    dev_ms = device_ms(lambda: kernel(*args), f"{kernel.__name__}_kernel")
+    plain_ms = median_ms(lambda: plain(*args), 5)
+    return got, want, ms, dev_ms, plain_ms
+
+
 def probe_phase(device, card: str):
     """P1-P6 through the entry points (the path; launches counted from 0),
     then each configuration's kernel against its plain version on the
-    same inputs, exactly, and both timed by CUDA events.  Returns the
-    kernels JSON rows of the probes."""
+    same inputs, exactly, with the kernel's call time (CUDA events), its
+    device time alone (torch.profiler) and the plain version's time; then
+    row_dma_probe's P2, P3 and P6 shapes at depths 1, 8 and 16, at 4096
+    and at 2^20 copies, a measurement off the path.  Returns the kernels
+    JSON rows of the probes."""
     from kaamer_tpu_torch.bench import probe_microbench as pmb
     from kaamer_tpu_torch.ops import probe_bench as pb
 
@@ -277,21 +319,19 @@ def probe_phase(device, card: str):
     rows = {}
     for label, case, kw, checksum, secs, n_launch in runs:
         kernel, plain, args = case(device, **kw)
-        got = int(kernel(*args).item()) & 0xFFFFFFFF
-        want = int(plain(*args).item()) & 0xFFFFFFFF
+        got, want, ms, dev_ms, plain_ms = time_probe(kernel, plain, args)
         err = abs(got - want)
         check(err == 0 and checksum & 0xFFFFFFFF == want,
               f"{label} {kw}: kernel {got}, entry point {checksum}, "
               f"plain {want}")
-        ms = median_ms(lambda: kernel(*args), 20)
-        plain_ms = median_ms(lambda: plain(*args), 5)
         work = (args[2] * 128 * args[3] if kernel is pb.smem_dyngather
                 else args[2])
         unit = "elems" if kernel is pb.smem_dyngather else "rows"
         print(f"{label} {kernel.__name__} {kw or 'script defaults'}: "
               f"checksum {got} == plain; entry point best-of-3 {secs} s; "
-              f"kernel {ms} ms ({work / ms / 1e3} M {unit}/s), plain torch "
-              f"{plain_ms} ms (median, CUDA events) [{card}]")
+              f"kernel call {ms} ms ({work / ms / 1e3} M {unit}/s), "
+              f"device {dev_ms} ms, plain torch {plain_ms} ms (call: median "
+              f"of CUDA events; device: torch.profiler mean) [{card}]")
         row = rows.setdefault(label, {
             "name": f"{label} {kernel.__name__}", "route": "cuda",
             "source": "kaamer_tpu_torch/csrc/probe_bench.cu",
@@ -299,9 +339,29 @@ def probe_phase(device, card: str):
         row["launches"] += n_launch
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["configs"].append({**kw, "launches": n_launch, "ms": ms,
-                               "plain_ms": plain_ms})
+                               "device_ms": dev_ms, "plain_ms": plain_ms})
         if kw == PROBE_HEAD.get(label, kw):
             row["ms"], row["plain_ms"] = ms, plain_ms
+
+    # P2, P3 and P6 at depths 1, 8, 16, at the scripts' n and at 2^20
+    # copies (the path's own configurations were timed above)
+    for label, case in (("P2", pmb.v2_case), ("P3", pmb.v3_case),
+                        ("P6", pmb.e4_case)):
+        for n, depth in itertools.product((4096, 1 << 20), (1, 8, 16)):
+            if n == 4096 and (label == "P6" or depth == 8):
+                continue
+            kernel, plain, args = case(device, n_dmas=n, depth=depth)
+            got, want, ms, dev_ms, plain_ms = time_probe(kernel, plain, args)
+            check(got == want, f"{label} n={n} depth={depth}: kernel {got}, "
+                  f"plain {want}")
+            print(f"{label} {kernel.__name__} n={n} depth={depth}: checksum "
+                  f"{got} == plain; kernel call {ms} ms ({n / ms / 1e3} M "
+                  f"rows/s), device {dev_ms} ms ({n / dev_ms / 1e3} M "
+                  f"rows/s), plain torch "
+                  f"{plain_ms} ms [{card}]")
+            rows[label]["configs"].append({
+                "n_dmas": n, "depth": depth, "ms": ms, "device_ms": dev_ms,
+                "plain_ms": plain_ms})
     out = []
     for label, replaces in PROBES:
         row = rows[label]
@@ -551,7 +611,7 @@ def main() -> int:
     print(f"kernels built and loaded in {time.perf_counter() - t0} s "
           f"({_kernels.LIB_PATH})")
     print("\n".join(ln for ln in _kernels.build_log.splitlines()
-                    if "registers" in ln or "bytes smem" in ln))
+                    if "registers" in ln or "spill" in ln))
 
     probe_rows = probe_phase(device, card)
     rng = np.random.default_rng(2026)

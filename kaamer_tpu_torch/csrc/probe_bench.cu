@@ -1,28 +1,57 @@
 // Device microbenchmark kernels of the hash-probe design study, for Hopper
 // (sm_90a).
 //
-// row_dma_probe replaces the Pallas per-row DMA probes of
-// scripts/pallas_dma_probe.py (v1_static_row_dma, v2_dyn_row_dma,
-// v3_prefetch_dma) and scripts/probe_microbench.py (pallas_dma_bench):
-// a ring of `depth` outstanding copies of one table row each, HBM to
-// on-chip memory, each waited on its own completion signal before the next
-// copy reuses its slot.  On the TPU that is pltpu.make_async_copy into a
-// VMEM scratch ring plus one DMA semaphore per slot; here it is one
-// cp.async.bulk (the TMA engine's 1-D bulk copy) per row into a
-// shared-memory ring, with one mbarrier per slot counting the bytes that
-// landed.  One thread issues, waits and reads, as the TPU's scalar core
-// does; the copy engine does the transfers.  The kernel is bound by the
-// latency of one random row read from device memory divided by the number
-// of copies in flight, which is what the probe measures: depth 1 is the
-// serial latency, larger depths how far overlap hides it.
+// row_dma_probe replaces the Pallas per-row DMA probes P1
+// scripts/pallas_dma_probe.py:58 (v1_static_row_dma), P2 :99
+// (v2_dyn_row_dma), P3 :154 (v3_prefetch_dma) and P6
+// scripts/probe_microbench.py:282 (pallas_dma_bench):
 //
 //   out[0] = wrapping int32 sum of table[idx[j], 0], j < n        (P1-P3)
-//          = table[idx[j0], 0], j0 the last multiple of depth < n  (P6,
-//            last_slot0: word 0 of the row that landed last in slot 0)
+//          = table[idx[j0], 0], j0 = ((n-1) / depth) * depth      (P6,
+//            last_slot0: word 0 of the row the TPU's ring last copied
+//            into slot 0)
 //
-// stage_idx (P3, the TPU's scalar prefetch): the block first copies the
-// index list into shared memory, so the issuing thread reads indices
-// there instead of from device memory.
+// The TPU kernels issue one row DMA at a time from the scalar core into a
+// ring of `depth` VMEM slots.  The first port copied that shape (one thread
+// issuing cp.async.bulk into a `depth`-slot ring, one mbarrier per slot) and
+// was bound by that thread: about 230 ns from issue to completion per copy,
+// 0.93-1.04 ms per 4096 copies at depth 1, 8, 16 and 32 alike, with 131 of
+// the 132 SMs idle (NVIDIA H100 80GB HBM3, 700 W power limit).  Hopper gets
+// its memory rate from many warps with 16-byte loads in flight on every SM,
+// so this kernel spreads the copies over the card:
+//
+//  - each warp takes a contiguous span of j; the grid is sized from n, the
+//    row width and depth: the steps are shared out as if every SM held
+//    its most resident warps (64 on the H100), in blocks of up to 32
+//    warps, or of as many as leave room in shared memory for two blocks
+//    an SM where rings are deep (those blocks then run in more than one
+//    wave); a ring has no more stages than its warp has steps; at small
+//    n one block per SM of as few warps as n needs;
+//  - each lane moves one 16-byte chunk of a row with cp.async.cg (through
+//    L2, not L1) into the warp's ring in shared memory, so one warp step
+//    moves 32 / (row bytes / 16) rows: 16 rows of 32 B, 8 of 64 B;
+//  - `depth` is the number of steps (cp.async groups) a warp keeps in
+//    flight: it waits with cp.async.wait_group depth-1 before reading the
+//    oldest stage, then refills it.  The first port had `depth` copies in
+//    flight on the card; this one has depth x (rows per step) x warps;
+//  - the lane that copied word 0 of a row adds it into a uint32; a warp
+//    shuffle reduce, the warps' sums in shared memory and one atomicAdd
+//    per block give the sum (exact and repeatable: a sum mod 2^32 does not
+//    depend on order).  With last_slot0 the one lane that lands row j0
+//    writes out[0];
+//  - stage_idx (P3, the TPU's scalar prefetch): each warp first loads its
+//    own span of idx into shared memory, coalesced, and issues from there.
+//
+// Bound: at the scripts' n = 4096 (at most a few hundred warps) the launch
+// latency plus about one L2 round trip.  The scripts' tables, 2^19 x 32 B =
+// 16 MiB and 2^19 x 64 B = 32 MiB, fit in the H100's 50 MB L2, so warm runs
+// measure L2, not HBM.  At large n the bound is the card's rate of random
+// 16-byte sector reads.  Measured on an NVIDIA H100 80GB HBM3 at 700 W:
+// about 2 us of device time at n = 4096 at every depth; at 2^20 copies
+// about 0.011 ms for 32 B rows and 0.018 ms for 64 B rows at depth 1.
+// Depth beyond 2 gains nothing there: 64 warps of an SM with one step each
+// in flight already cover L2's latency, and deeper rings only take shared
+// memory, and with it resident warps.
 //
 // smem_dyngather replaces the Pallas on-chip gathers
 // scripts/pallas_dma_probe.py:v4_vmem_dyngather and
@@ -44,97 +73,134 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
+#include <mutex>
+
 namespace {
+
+constexpr int kMaxBlockWarps = 32;    // row_dma_probe: 1024 threads a block
+constexpr int kMaxStagedRows = 1024;  // stage_idx: most indices a warp
+                                      // stages
+constexpr int kDyngatherMaxT = 32768;  // smem_dyngather: most table rows
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
+// 16 bytes, device memory -> shared memory, cached in L2 only
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      " .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// one row, device memory -> shared memory, completion counted in bytes on
-// the slot's barrier (sizes and both addresses are multiples of 16)
-__device__ __forceinline__ void issue_row(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  mbar_expect_tx(bar, bytes);
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+// cp.async.wait_group takes its count as an immediate, and the ring depth
+// is a runtime argument: pick the instruction by binary search on
+// pending in [LO, HI)
+template <int LO, int HI>
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if constexpr (HI - LO == 1) {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(LO) : "memory");
+  } else {
+    constexpr int MID = (LO + HI) / 2;
+    if (pending < MID) {
+      cp_async_wait<LO, MID>(pending);
+    } else {
+      cp_async_wait<MID, HI>(pending);
+    }
+  }
 }
 
 }  // namespace
 
-__global__ void row_dma_probe_kernel(const uint32_t* __restrict__ table,
-                                     int row_words,
-                                     const int* __restrict__ idx, int n,
-                                     int depth, int stage_idx,
-                                     int last_slot0, int* __restrict__ out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);          // [depth]
-  const int row_bytes = row_words * 4;
-  unsigned char* ring = smem + 128 * ((depth * 8 + 127) / 128);  // [depth]
-  int* s_idx = reinterpret_cast<int*>(ring + depth * row_bytes);  // [n]
+// Warp w of the grid (warp w % W of block w / W, W = blockDim.x / 32)
+// copies rows j in
+// [w * span * rows_per_step, + span * rows_per_step) ∩ [0, n),
+// rows_per_step rows a step, through a ring of `stages` steps in its own
+// warp_bytes of shared memory.  j0 < 0: sum mode; else write word 0 of row
+// j0.  Two blocks of up to 32 warps fill an SM's 64 warps, so at most 32
+// registers a thread.
+__global__ void __launch_bounds__(32 * kMaxBlockWarps, 2)
+row_dma_probe_kernel(const uint32_t* __restrict__ table, int row_words,
+                     const int* __restrict__ idx, int n, int rows_per_step,
+                     int span, int stages, int warp_bytes, int stage_idx,
+                     int j0, uint32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_all[];
+  __shared__ uint32_t warp_sums[kMaxBlockWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned char* smem = smem_all + warp * warp_bytes;  // this warp's share
+  const int chunks = row_words / 4;  // 16-byte chunks of a row
+  const int step_chunks = rows_per_step * chunks;
+  const int stage_bytes = step_chunks * 16;
+  const int span_rows = span * rows_per_step;
+  const int j_begin = (int)min(
+      ((long long)blockIdx.x * (blockDim.x >> 5) + warp) * span_rows,
+      (long long)n);
+  const int rows = min(n - j_begin, span_rows);  // 0 past the end
+  const int steps = (rows + rows_per_step - 1) / rows_per_step;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < depth; ++s) mbar_init(smem_u32(&bars[s]), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  const int* ids = idx;
+  const int* ids = idx + j_begin;  // row r of the span is table row ids[r]
   if (stage_idx) {
-    for (int j = threadIdx.x; j < n; j += blockDim.x) s_idx[j] = idx[j];
+    int* s_idx = reinterpret_cast<int*>(smem + stages * stage_bytes);
+    for (int r = lane; r < rows; r += 32) s_idx[r] = ids[r];
+    __syncwarp();
     ids = s_idx;
   }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
 
-  auto issue = [&](int slot, int j) {
-    const uint32_t* src = table + (size_t)ids[j] * row_words;
-    issue_row(smem_u32(ring + slot * row_bytes), src, row_bytes,
-              smem_u32(&bars[slot]));
-  };
-  for (int j = 0; j < depth && j < n; ++j) issue(j, j);
-  uint32_t acc = 0;
-  for (int j = 0; j < n; ++j) {
-    const int slot = j % depth;
-    const uint32_t bar = smem_u32(&bars[slot]);
-    // the k-th copy into a slot completes the barrier's phase k; a copy
-    // that never lands (a fault) ends the kernel with an error instead of
-    // spinning forever
-    for (long long spins = 0; !mbar_try_wait(bar, (uint32_t)(j / depth) & 1);
-         ++spins) {
-      if (spins > (1LL << 30)) __trap();
+  // A lane's share of a step: row lane_row of the step, chunks lane_chunk,
+  // lane_chunk + 32, ... (more than one only for rows above 32 chunks, one
+  // row a step, where lane_row is 0); lanes past the step copy nothing.
+  // Chunk lane_chunk == 0 holds word 0.  No division in the step loop.
+  const int lane_row = lane / chunks;
+  const int lane_chunk = lane % chunks;
+  const bool copies = lane < step_chunks;
+  const uint32_t ring = smem_u32(smem);
+
+  // step s into stage `slot`, one commit group (empty past the span)
+  auto issue = [&](int slot, int s) {
+    const int r = s * rows_per_step + lane_row;
+    if (copies && r < rows) {
+      const uint32_t* src = table + (size_t)ids[r] * row_words;
+      const uint32_t dst = ring + slot * stage_bytes;
+      for (int k = lane, c = lane_chunk; k < step_chunks; k += 32, c += 32) {
+        cp_async16(dst + k * 16, src + c * 4);
+      }
     }
-    acc += *reinterpret_cast<volatile uint32_t*>(ring + slot * row_bytes);
-    if (j + depth < n) {
-      // order this generic-proxy read before the copy engine rewrites
-      // the slot
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      issue(slot, j + depth);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  for (int s = 0; s < stages; ++s) issue(s, s);
+  uint32_t acc = 0;
+  for (int s = 0, slot = 0; s < steps; ++s) {
+    // stages groups are committed ahead of step s + 1: at most stages - 1
+    // pending means step s's copies (those of this lane) have landed
+    cp_async_wait<0, 64>(stages - 1);
+    const int r = s * rows_per_step + lane_row;
+    if (copies && lane_chunk == 0 && r < rows) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(
+          smem + slot * stage_bytes + lane * 16);
+      acc += v;
+      if (j_begin + r == j0) out[0] = v;
+    }
+    // a lane reads only chunks it copied itself, so program order puts
+    // the read before the refill: no warp barrier
+    issue(slot, s + stages);
+    slot = slot + 1 == stages ? 0 : slot + 1;
+  }
+  if (j0 < 0) {  // the same for every thread of the block
+    for (int o = 16; o > 0; o >>= 1) {
+      acc += __shfl_down_sync(0xffffffffu, acc, o);
+    }
+    if (lane == 0) warp_sums[warp] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      uint32_t b = 0;
+      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) b += warp_sums[w];
+      atomicAdd(out, b);
     }
   }
-  out[0] = last_slot0 ? (int)*reinterpret_cast<volatile uint32_t*>(ring)
-                      : (int)acc;
 }
 
 #define DG_THREADS 256
@@ -169,36 +235,139 @@ smem_dyngather_kernel(const uint32_t* __restrict__ x,
   }
 }
 
+namespace {
+
+// What a launch needs of its device, read once per device.  The first
+// launch on a device also raises both kernels' dynamic shared-memory
+// limits to the most any launch asks for: once, not per launch.
+struct DeviceLimits {
+  int sms;           // SMs
+  int warps_per_sm;  // most resident warps of an SM
+  size_t probe_smem;  // row_dma_probe: most dynamic shared memory a block,
+  size_t probe_smem2;  // and a block's share with two blocks an SM
+};
+
+cudaError_t device_limits(int dev, DeviceLimits* lim) {
+  static DeviceLimits limits[kMaxDevices];
+  static std::atomic<bool> ready[kMaxDevices];
+  static std::mutex mu;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!ready[dev].load(std::memory_order_acquire)) {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!ready[dev].load(std::memory_order_relaxed)) {
+      DeviceLimits d;
+      int threads = 0, optin = 0;
+      cudaFuncAttributes attr;
+      cudaError_t err = cudaDeviceGetAttribute(
+          &d.sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(
+            &threads, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+      }
+      if (err == cudaSuccess) {
+        err = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      }
+      if (err == cudaSuccess) {
+        err = cudaFuncGetAttributes(&attr, row_dma_probe_kernel);
+      }
+      if (err == cudaSuccess) {
+        d.warps_per_sm = threads / 32;
+        d.probe_smem = optin - attr.sharedSizeBytes;
+        err = cudaFuncSetAttribute(row_dma_probe_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)d.probe_smem);
+      }
+      if (err == cudaSuccess) {
+        err = cudaOccupancyAvailableDynamicSMemPerBlock(
+            &d.probe_smem2, row_dma_probe_kernel, 2, 32 * kMaxBlockWarps);
+      }
+      if (err == cudaSuccess) {
+        err = cudaFuncSetAttribute(smem_dyngather_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kDyngatherMaxT * 4);
+      }
+      if (err != cudaSuccess) return err;  // the next launch tries again
+      limits[dev] = d;
+      ready[dev].store(true, std::memory_order_release);
+    }
+  }
+  *lim = limits[dev];
+  return cudaSuccess;
+}
+
+}  // namespace
+
 extern "C" {
 
-// out: int32[1].  Returns a cudaError_t (0 on success).
+// out: uint32[1], zeroed by the caller.  Returns a cudaError_t (0 on
+// success); cudaErrorInvalidValue when one warp's ring and indices do not
+// fit in a block's shared memory.
 int kt_row_dma_probe(const void* table, int row_words, const void* idx,
                      int n, int depth, int stage_idx, int last_slot0,
                      void* out, void* stream) {
   const int row_bytes = row_words * 4;
-  if (n < 1 || depth < 1 || row_bytes % 16) return (int)cudaErrorInvalidValue;
-  size_t smem = 128 * ((depth * 8 + 127) / 128) + (size_t)depth * row_bytes
-                + (stage_idx ? (size_t)n * 4 : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      row_dma_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (n < 1 || depth < 1 || depth > 64 || row_bytes < 16 || row_bytes % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int dev;
+  DeviceLimits lim;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = device_limits(dev, &lim);
   if (err != cudaSuccess) return (int)err;
-  row_dma_probe_kernel<<<1, 32, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)table, row_words, (const int*)idx, n, depth, stage_idx,
-      last_slot0, (int*)out);
+
+  auto cdiv = [](long long a, long long b) { return (a + b - 1) / b; };
+  const int chunks = row_bytes / 16;
+  const int rows_per_step = chunks <= 32 ? 32 / chunks : 1;
+  const long long stage_bytes = (long long)rows_per_step * row_bytes;
+  const long long n_steps = cdiv(n, rows_per_step);
+  // Share the steps out over every warp the card can hold at once; with
+  // stage_idx a warp stages at most kMaxStagedRows indices.  A warp's
+  // shared memory is its ring (no more stages than steps) and its indices.
+  long long span = cdiv(n_steps, (long long)lim.sms * lim.warps_per_sm);
+  if (stage_idx) {
+    span = std::min<long long>(span,
+                               std::max(1, kMaxStagedRows / rows_per_step));
+  }
+  const long long stages = std::min<long long>(depth, span);
+  const long long warp_bytes =
+      cdiv(stages * stage_bytes + (stage_idx ? span * rows_per_step * 4 : 0),
+           16) * 16;
+  const long long n_warps = cdiv(n_steps, span);
+  // Block width: at most 32 warps, no more than it takes to give every SM
+  // a block when n is small, and no more than fit in a block's share of
+  // shared memory with two blocks an SM (with one where a warp's ring
+  // takes more than half).  Where shared memory holds fewer warps than
+  // an SM can run, the blocks run in more than one wave.
+  const long long fit = lim.probe_smem2 >= (size_t)warp_bytes
+                            ? lim.probe_smem2 / warp_bytes
+                            : lim.probe_smem / warp_bytes;
+  const long long warps = std::min({(long long)kMaxBlockWarps,
+                                    cdiv(n_warps, lim.sms), fit});
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  row_dma_probe_kernel<<<(unsigned)cdiv(n_warps, warps),
+                         (unsigned)(32 * warps), (size_t)(warps * warp_bytes),
+                         (cudaStream_t)stream>>>(
+      (const uint32_t*)table, row_words, (const int*)idx, n, rows_per_step,
+      (int)span, (int)stages, (int)warp_bytes, stage_idx,
+      last_slot0 ? ((n - 1) / depth) * depth : -1, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 
-// out: uint32[1], zeroed by the caller.  T a power of two.
+// out: uint32[1], zeroed by the caller.  T a power of two, at most 32768
+// (a column of T words in a block's shared memory).
 int kt_smem_dyngather(const void* x, const void* idx, int T, int inner,
                       void* out, void* stream) {
-  if (T < 1 || (T & (T - 1))) return (int)cudaErrorInvalidValue;
-  size_t smem = (size_t)T * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      smem_dyngather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (T < 1 || (T & (T - 1)) || T > kDyngatherMaxT) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int dev;
+  DeviceLimits lim;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = device_limits(dev, &lim);
   if (err != cudaSuccess) return (int)err;
-  smem_dyngather_kernel<<<128, DG_THREADS, smem, (cudaStream_t)stream>>>(
+  smem_dyngather_kernel<<<128, DG_THREADS, (size_t)T * 4,
+                          (cudaStream_t)stream>>>(
       (const uint32_t*)x, (const uint32_t*)idx, T, inner, (uint32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 """The probe microbenchmarks' device kernels (csrc/probe_bench.cu), each
 with a plain torch version of the same signature.
 
-  row_dma_probe   a ring of `depth` row copies in flight, device memory to
-                  shared memory (the Pallas DMA probes P1-P3 and P6)
+  row_dma_probe   row copies device memory -> shared memory, `depth`
+                  cp.async stages in flight per warp over the whole card
+                  (the Pallas DMA probes P1-P3 and P6)
   smem_dyngather  repeated data-dependent gathers from an on-chip table
                   (the Pallas VMEM gathers P4 and P5)
 
@@ -56,11 +57,15 @@ def row_dma_probe_plain(table, idx, n: int, depth: int, stage_idx: bool,
 
 def row_dma_probe(table, idx, n: int, depth: int, stage_idx: bool = False,
                   last_slot0: bool = False) -> torch.Tensor:
-    """Copy rows table[idx[j]] for j < n through a `depth`-slot ring, each
-    copy waited before its slot is reused.  table int32[rows, W] (uint32
-    words, W * 4 a multiple of 16 bytes), idx int32[>= n] row ids in range.
-    Returns int32[1]: the wrapping sum of the rows' word 0, or with
-    last_slot0 word 0 of slot 0 after the last copy."""
+    """Copy rows table[idx[j]] for j < n into shared memory, each warp of
+    the kernel keeping `depth` stages of copies in flight (the TPU's ring
+    of `depth` slots).  table int32[rows, W] (uint32 words, W * 4 a
+    multiple of 16 bytes), idx int32[>= n] row ids in range.  Returns
+    int32[1]: the wrapping sum of the rows' word 0, or with last_slot0
+    word 0 of row idx[j0], the last copy into slot 0 of the TPU's ring.
+    Raises RuntimeError where one warp's ring does not fit in a block's
+    shared memory (rows above 512 B, when the ring's stages, at most
+    `depth`, times the row bytes come near 227 KB)."""
     dev = table.device
     _check("table", table, torch.int32, 2, dev)
     _check("idx", idx, torch.int32, 1, dev)
@@ -74,8 +79,8 @@ def row_dma_probe(table, idx, n: int, depth: int, stage_idx: bool = False,
         raise ValueError(f"unsupported device {dev}")
     if (table.shape[1] * 4) % 16 or table.data_ptr() % 16:
         raise ValueError("rows must be 16-byte multiples at 16-byte "
-                         "aligned addresses (cp.async.bulk)")
-    out = torch.empty(1, dtype=torch.int32, device=dev)
+                         "aligned addresses (16-byte cp.async chunks)")
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _kernels.lib()
     with torch.cuda.device(dev):
         rc = lib.kt_row_dma_probe(

@@ -87,25 +87,80 @@ def test_wrapper_rejects_bad_arguments(cuda):
         swc.sw_wavefront(qc, rc[:, :8].contiguous(), ql, rl, mat, 11, 1)
 
 
-@pytest.mark.parametrize("row_words,n,depth,stage,slot0", [
-    (8, 1, 1, False, False),        # P1
-    (8, 4096, 8, False, False),     # P2
-    (8, 4096, 8, True, False),      # P3
-    (16, 4096, 1, True, True),      # P6 at the scripts' three depths
-    (16, 4096, 8, True, True),
-    (16, 4096, 16, True, True),
-    (16, 1000, 16, True, True),     # n not a multiple of depth
-])
-def test_row_dma_probe_matches_plain(cuda, row_words, n, depth, stage, slot0):
-    table = pmb._table(1 << 19, row_words, cuda)
-    idx = pmb._hash_idx(n, 1 << 19, cuda)
-    if n == 1:
-        idx.fill_(7)
+@pytest.fixture(scope="module")
+def probe_inputs():
+    """Tables of 2^19 rows of 16, 32 and 64 B and 2^20 hashed row ids on
+    the card, shared by the row_dma_probe cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    return ({w: _table1(1 << 19, w, dev) for w in (4, 8, 16)},
+            pmb._hash_idx(1 << 20, 1 << 19, dev))
+
+
+def _table1(n_rows, row_words, device):
+    """The scripts' arange table plus one: word 0 of every row, row 0's
+    included, is non-zero, so an output the kernel never wrote (the
+    wrapper's zeroed uint32) cannot pass for the plain version's."""
+    return pmb._table(n_rows, row_words, device) + 1
+
+
+# every ring depth of the kernel's shape, n at one ring and either side of
+# it, at the scripts' 4096 and at 2^20 copies (n = depth - 1 = 0 dropped)
+DEPTH_N = [(d, n) for d in (1, 2, 7, 8, 16, 64)
+           for n in sorted({1, d - 1, d, d + 1, 4096, 1 << 20} - {0})]
+
+
+@pytest.mark.parametrize("slot0", [False, True])
+@pytest.mark.parametrize("stage", [False, True])
+@pytest.mark.parametrize("row_words", [8, 16])
+@pytest.mark.parametrize("depth,n", DEPTH_N)
+def test_row_dma_probe_matches_plain(probe_inputs, row_words, n, depth,
+                                     stage, slot0):
+    """P1-P3 (32 B rows, sum of word 0) and P6 (64 B rows, word 0 of row
+    j0), with and without staged indices, exactly."""
+    tables, idx = probe_inputs
+    table = tables[row_words]
     before = pb.launches["row_dma_probe"]
     got = pb.row_dma_probe(table, idx, n, depth, stage, slot0)
     want = pb.row_dma_probe_plain(table, idx, n, depth, stage, slot0)
     assert torch.equal(got.cpu(), want.cpu())
     assert pb.launches["row_dma_probe"] == before + 1
+
+
+def test_row_dma_probe_p1(cuda):
+    """P1 as the script has it: one copy of row 7, checksum table[7, 0]."""
+    kernel, _, args = pmb.v1_case(cuda)
+    assert kernel(*args).item() == 7 * 8 == 56
+
+
+@pytest.mark.parametrize("row_words,n_rows,n,depth", [
+    (4, 1 << 19, 4096, 8),          # 16 B rows: 32 rows a warp step
+    (4, 1 << 19, 1 << 20, 16),
+    (12, 1 << 14, 100_003, 8),      # 48 B: 10 rows a step, 2 lanes idle
+    (256, 1 << 12, 50_000, 4),      # 1 KB: one row a step, 2 chunks a lane
+])
+def test_row_dma_probe_other_widths(cuda, row_words, n_rows, n, depth):
+    table = _table1(n_rows, row_words, cuda)
+    idx = pmb._hash_idx(n, n_rows, cuda)
+    for stage, slot0 in ((False, False), (True, True)):
+        got = pb.row_dma_probe(table, idx, n, depth, stage, slot0)
+        want = pb.row_dma_probe_plain(table, idx, n, depth, stage, slot0)
+        assert torch.equal(got.cpu(), want.cpu())
+
+
+def test_row_dma_probe_rejects_bad_rows(cuda):
+    """Rows that are not 16-byte multiples raise before any launch; a
+    warp's ring that does not fit in a block's shared memory raises from
+    the entry point: 64 stages of 4 KB rows (2^20 copies give every warp
+    more than 64 steps), or one 256 KB row."""
+    idx = pmb._hash_idx(1 << 20, 1 << 10, cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        pb.row_dma_probe(pmb._table(1 << 10, 6, cuda), idx, 4096, 8)
+    with pytest.raises(RuntimeError, match="row_dma_probe failed"):
+        pb.row_dma_probe(pmb._table(1 << 10, 1024, cuda), idx, 1 << 20, 64)
+    with pytest.raises(RuntimeError, match="row_dma_probe failed"):
+        pb.row_dma_probe(pmb._table(4, 1 << 16, cuda), idx[:8] % 4, 8, 1)
 
 
 @pytest.mark.parametrize("T,inner", [(512, 32), (4096, 32), (8192, 32),

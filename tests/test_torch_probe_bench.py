@@ -18,6 +18,8 @@ from jax.experimental.pallas import tpu as pltpu
 
 from kaamer_tpu_torch.bench import probe_microbench as tb
 
+_table = tb._table
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -46,14 +48,18 @@ def scripts():
 @pytest.fixture
 def run_jax(monkeypatch):
     """Call a script function with its Pallas kernels in interpret mode and
-    its timer replaced by one call; returns the checksum as uint32."""
+    its timer replaced by one call; returns the checksum as uint32.
+    `inputs`, where given, rewrites the arguments the script times its
+    kernel on."""
     monkeypatch.setattr(pl, "pallas_call", functools.partial(
         pl.pallas_call, interpret=pltpu.InterpretParams()))
 
-    def call(mod, fn, *args, **kw):
+    def call(mod, fn, *args, inputs=None, **kw):
         got = []
 
         def fake_timed(f, *a, **_):
+            if inputs is not None:
+                a = inputs(*a)
             got.append(np.asarray(jax.device_get(f(*a))).reshape(-1))
             return 1.0
 
@@ -97,6 +103,30 @@ def test_probe_microbench_pallas(scripts, run_jax, name, kw):
     mod = scripts[1]
     want = run_jax(mod, getattr(mod, name), **kw)
     assert _port(getattr(tb, name), **kw) == want
+
+
+@pytest.mark.parametrize("n_dmas", [3, 4, 5])
+def test_p6_slot0_row_at_one_ring(scripts, run_jax, monkeypatch, n_dmas):
+    """P6 at depth 4 with n = depth - 1, depth and depth + 1: the row the
+    script's ring copies last into slot 0 is j0 = ((n - 1) // depth) *
+    depth, here 0, 0 and 4.  Both sides run on the script's table plus
+    one, so word 0 of every row is non-zero and an output never written
+    (0) cannot pass.  At n < depth the script's prologue still starts
+    `depth` copies and reads its index list past the end, which interpret
+    mode refuses: the list is padded to `depth` entries, and the extra
+    copies land in slots that no later read sees."""
+    mod, depth = scripts[1], 4
+
+    def inputs(idx, table):
+        pad = np.zeros(max(0, depth - idx.shape[0]), np.int32)
+        return np.concatenate([np.asarray(idx), pad]), table + 1
+
+    monkeypatch.setattr(tb, "_table", lambda *a: _table(*a) + 1)
+    want = run_jax(mod, mod.pallas_dma_bench, n_dmas=n_dmas, depth=depth,
+                   inputs=inputs)
+    row0 = (n_dmas - 1) // depth * depth * 2654435761 % (1 << 19)
+    assert want == row0 * 16 + 1
+    assert _port(tb.pallas_dma_bench, n_dmas=n_dmas, depth=depth) == want
 
 
 @pytest.mark.parametrize("name,args", [
