@@ -1,10 +1,13 @@
 """kaamer_tpu_torch: the PyTorch/CUDA port of kaamer_tpu.
 
 Module paths mirror kaamer_tpu's, so each port module sits at the same
-relative path as the JAX module it replaces.  Host code of kaamer_tpu that
-never imports JAX (artifact, build, readers, options, results formatting,
-matrices, the native packers) is shared by import, not copied; this package
-itself imports torch and never jax.
+relative path as the JAX module it replaces.  The package stands alone: it
+imports torch, never jax, and nothing of kaamer_tpu.  The host code it
+needs (records, codec packers, readers, artifact and build, the native
+packers, options, results formatting, matrices, the host SW DP, the
+engine's planner and the protein pipeline, the server's form parsing) is
+its own copy, with the JAX package's constants, tie rules and formats
+unchanged.
 
 Every device function takes its device explicitly (an engine is built for
 one device; tensors carry theirs).  Nothing here picks a device on its own

@@ -3,8 +3,8 @@
   python -m kaamer_tpu_torch.cli -server -d DB [-p PORT] [-device cuda]
   python -m kaamer_tpu_torch.cli -make -i proteins.fasta -f fasta -d DB
 
--make builds the database with the shared kaamer_tpu.index.build.build_db
-(the artifact is the same for both packages).
+-make builds the database with the port's index.build.build_db (the
+artifact is byte for byte the JAX package's).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def kaamer_db_main(argv=None) -> int:
         if not args.d or not args.i or not args.f:
             print("-make needs -d, -i and -f !")
             return 1
-        from kaamer_tpu.index.build import build_db
+        from .index.build import build_db
 
         build_db(args.d, args.i, args.f, progress=True)
         return 0

@@ -9,9 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from kaamer_tpu.index.hashtable import HASH_MULT, HASH_MULT2
-
 from ..codec import U32, as_u32
+from ..index.hashtable import HASH_MULT, HASH_MULT2
 
 
 def hash_bucket(q: torch.Tensor, mult: int, log2: int) -> torch.Tensor:

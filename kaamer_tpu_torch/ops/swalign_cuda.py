@@ -1,37 +1,40 @@
 """Batched Smith-Waterman on the device (kaamer_tpu/ops/swalign_pallas.py).
 
-Two kernels, each with a plain-torch twin of the same signature:
+One kernel, sw_align (csrc/swalign.cu): Gotoh affine-gap local alignment
+of B pairs and its traceback, returning (score int32[B], q_ops int16[B,
+d_pad], r_ops int16[B, d_pad], n_ops int32[B]).  Its plain version is the
+composition of two plain functions that mirror the JAX package step for
+step and are held against it on the CPU:
 
-  sw_wavefront  Gotoh affine-gap DP along anti-diagonals; emits the packed
-                direction bytes dirs uint8[B, d_pad, W] and the per-lane
-                best scores best int32[B, 2, W] in the Pallas kernel's
-                layout (csrc/swalign.cu states the bit layout)
-  sw_traceback  walks dirs from the best cell of each pair; emits the
-                alignment path as int16 op lists plus its length
+  sw_wavefront_plain  _kernel's anti-diagonal DP, vectorized over (B, W):
+                      direction bytes dirs uint8[B, d_pad, W] and per-lane
+                      best scores best int32[B, 2, W] in the Pallas layout
+  sw_traceback_plain  _build_traceback's lockstep walk over dirs
 
-A CUDA tensor runs the hand-written kernel (csrc/swalign.cu) or raises; a
-CPU tensor runs the plain version.  The plain versions mirror the JAX
-functions step for step (_kernel's diagonal loop vectorized over (B, W),
-_build_traceback's lockstep walk), and are the kernels' oracle.
+A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain
+version.  The kernel keeps its directions on chip as nibbles in a
+step-major layout of its own; pack_dirs_nibbles and sw_walk_nibbles_plain
+rebuild that layout and walk it in torch, so the kernel's index
+arithmetic is under CPU tests too.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from kaamer_tpu.ops.matrices import MatrixScores
-
 from . import _kernels
+from .matrices import MatrixScores
 
 NEG = -(10**8)
 MAX_LEN = 2048
 N_LETTERS = 24
 
 # kernel launches by wrapper (not counting plain-version calls)
-launches = {"sw_wavefront": 0, "sw_traceback": 0}
+launches = {"sw_align": 0}
 
 
 def reset_launches() -> None:
@@ -43,7 +46,14 @@ def _d_pad(m_pad: int, n_pad: int) -> int:
     return ((m_pad + n_pad + 1 + 7) // 8) * 8
 
 
-def _check_wavefront_args(qcodes, rcodes, qlens, rlens, mat):
+def rows_per_lane(m_pad: int) -> int:
+    """The kernel's R, query rows per lane of its warp: 4 * ceil(m_pad /
+    128), pad_pairs' 128-buckets, at most 64 (2048 rows: a longer query
+    goes to the host DP)."""
+    return min(64, 4 * -(-m_pad // 128))
+
+
+def _check_args(qcodes, rcodes, qlens, rlens, mat):
     B = qcodes.shape[0]
     dev = qcodes.device
     for name, t, dtype, ndim in (("qcodes", qcodes, torch.uint8, 2),
@@ -66,7 +76,11 @@ def sw_wavefront_plain(qcodes, rcodes, qlens, rlens, mat, gap_open: int,
                        gap_extend: int):
     """swalign_pallas.py:_kernel as torch ops: one vectorized update per
     anti-diagonal over all pairs and query lanes.  Every cell gets a value
-    (invalid cells h = 0, e = f = NEG), as in the Pallas kernel."""
+    (invalid cells h = 0, e = f = NEG), as in the Pallas kernel.  Returns
+    (dirs uint8[B, d_pad, W], best int32[B, 2, W]): per cell (i, j) at
+    [b, i + j, i] bits 0-1 the H origin (0 stop, 1 diag, 2 E, 3 F), bit 2
+    E continued from E, bit 3 F from F; per query lane i the best H and
+    the first diagonal reaching it."""
     B, m_pad = qcodes.shape
     n_pad = rcodes.shape[1]
     W = m_pad + 1
@@ -113,72 +127,25 @@ def sw_wavefront_plain(qcodes, rcodes, qlens, rlens, mat, gap_open: int,
     return dirs, torch.stack([best_v, best_d], dim=1)
 
 
-def sw_wavefront(qcodes, rcodes, qlens, rlens, mat, gap_open: int,
-                 gap_extend: int):
-    """Direction bytes and per-lane best scores of B pairs.
-
-    qcodes uint8[B, m_pad], rcodes uint8[B, n_pad] LETTER_INDEX codes;
-    qlens/rlens int32[B] (<= m_pad, <= n_pad, <= 2048); mat int32[24, 24].
-    Returns (dirs uint8[B, d_pad, m_pad + 1], best int32[B, 2, m_pad + 1]),
-    d_pad = ceil8(m_pad + n_pad + 1).  On CUDA only valid cells of dirs
-    and lanes 0..qlen of best are defined."""
-    _check_wavefront_args(qcodes, rcodes, qlens, rlens, mat)
-    B, m_pad = qcodes.shape
-    n_pad = rcodes.shape[1]
-    if B and m_pad >= MAX_LEN + 128:
-        raise ValueError(f"m_pad {m_pad} is beyond the kernel's lanes")
-    if qcodes.device.type == "cpu":
-        return sw_wavefront_plain(qcodes, rcodes, qlens, rlens, mat,
-                                  gap_open, gap_extend)
-    if qcodes.device.type != "cuda":
-        raise ValueError(f"unsupported device {qcodes.device}")
-    if B:
-        q_max, r_max = torch.stack([qlens.max(), rlens.max()]).tolist()
-        if q_max > min(m_pad, MAX_LEN) or r_max > n_pad:
-            raise ValueError(f"lengths ({q_max}, {r_max}) exceed the pads "
-                             f"({m_pad}, {n_pad}) or {MAX_LEN}")
-    W = m_pad + 1
-    d_pad = _d_pad(m_pad, n_pad)
-    dirs = torch.empty((B, d_pad, W), dtype=torch.uint8, device=qcodes.device)
-    best = torch.empty((B, 2, W), dtype=torch.int32, device=qcodes.device)
-    lib = _kernels.lib()
-    with torch.cuda.device(qcodes.device):
-        rc = lib.kt_sw_wavefront(
-            qcodes.data_ptr(), rcodes.data_ptr(), qlens.data_ptr(),
-            rlens.data_ptr(), mat.data_ptr(), B, m_pad, n_pad, d_pad,
-            int(gap_open), int(gap_extend), dirs.data_ptr(), best.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    _kernels.check(rc, "sw_wavefront")
-    launches["sw_wavefront"] += 1
-    return dirs, best
-
-
-def sw_traceback_plain(dirs, best, qlens):
-    """swalign_pallas.py:_build_traceback as torch ops: all pairs walk in
-    lockstep (the walk stops early once every pair is done, which changes
-    no output).  Ops past n_ops are -1."""
-    B, d_pad, W = dirs.shape
-    dev = dirs.device
-    lane = torch.arange(W, device=dev)[None, :]
-    bv = torch.where(lane <= qlens.long()[:, None], best[:, 0, :], -1)
-    score = bv.max(dim=1).values
-    # first maximum: lowest i
-    i = torch.where(bv == score[:, None], lane, W).min(dim=1).values
-    j = best[:, 1, :].gather(1, i[:, None])[:, 0].long() - i
+def _walk_plain(read, score, i, j, S: int):
+    """_build_traceback's lockstep walk from the start cells (i, j) of
+    pairs scoring `score`; read(i, j) gives the direction bits of cell
+    (i, j) (int64[B]).  All pairs walk together (the walk stops early once
+    every pair is done, which changes no output).  Returns (score int32,
+    q_ops int16[B, S], r_ops, n_ops int32); ops past n_ops are -1."""
+    B = score.shape[0]
+    dev = score.device
     st = torch.zeros(B, dtype=torch.long, device=dev)  # 0 H, 1 E, 2 F
     done = score <= 0
     n = torch.zeros(B, dtype=torch.long, device=dev)
-    S = d_pad
     q_buf = torch.full((B, S + 1), -1, dtype=torch.int16, device=dev)
     r_buf = torch.full_like(q_buf, -1)
-    flat = dirs.reshape(B, -1)
-    for step in range(2 * d_pad):
+    for step in range(2 * S):
         alive = ~done & (i > 0) & (j > 0)
         if step % 64 == 0 and not bool(alive.any()):
             break
-        idx = ((i + j) * W + i).clamp(0, d_pad * W - 1)
-        byte = flat.gather(1, idx[:, None])[:, 0].long()
-        hdir = byte & 3
+        bits = read(i, j)
+        hdir = bits & 3
         isH, isE, isF = st == 0, st == 1, st == 2
         diag = isH & (hdir == 1)
         stopping = isH & (hdir == 0)
@@ -189,8 +156,8 @@ def sw_traceback_plain(dirs, best, qlens):
         n = n + emit.long()
         new_st = torch.where(
             isH, torch.where(hdir == 2, 1, torch.where(hdir == 3, 2, 0)),
-            torch.where(isE, torch.where((byte & 4) > 0, 1, 0),
-                        torch.where((byte & 8) > 0, 2, 0)))
+            torch.where(isE, torch.where((bits & 4) > 0, 1, 0),
+                        torch.where((bits & 8) > 0, 2, 0)))
         done = done | stopping | (i <= 0) | (j <= 0)
         i = torch.where(alive & (diag | isF), i - 1, i)
         j = torch.where(alive & (diag | isE), j - 1, j)
@@ -203,39 +170,145 @@ def sw_traceback_plain(dirs, best, qlens):
     return score.int(), q_ops, r_ops, n.int()
 
 
-def sw_traceback(dirs, best, qlens):
-    """Alignment paths of B pairs from sw_wavefront's outputs.
+def sw_traceback_plain(dirs, best, qlens):
+    """swalign_pallas.py:_build_traceback as torch ops: the walk starts at
+    the first lane (lowest i) holding the maximum best, at the diagonal
+    best records for it.  Returns (score int32[B], q_ops int16[B, d_pad],
+    r_ops int16[B, d_pad], n_ops int32[B]); ops past n_ops are -1."""
+    B, d_pad, W = dirs.shape
+    lane = torch.arange(W, device=dirs.device)[None, :]
+    bv = torch.where(lane <= qlens.long()[:, None], best[:, 0, :], -1)
+    score = bv.max(dim=1).values
+    # first maximum: lowest i
+    i = torch.where(bv == score[:, None], lane, W).min(dim=1).values
+    j = best[:, 1, :].gather(1, i[:, None])[:, 0].long() - i
+    flat = dirs.reshape(B, -1)
 
-    Returns (score int32[B], q_ops int16[B, d_pad], r_ops int16[B, d_pad],
-    n_ops int32[B]): the first n_ops[b] entries of q_ops/r_ops are the
-    forward path (-1 marks a gap column); entries past n_ops are
-    undefined on CUDA."""
+    def read(i, j):
+        idx = ((i + j) * W + i).clamp(0, d_pad * W - 1)
+        return flat.gather(1, idx[:, None])[:, 0].long()
+
+    return _walk_plain(read, score, i, j, d_pad)
+
+
+def sw_align_plain(qcodes, rcodes, qlens, rlens, mat, gap_open: int,
+                   gap_extend: int):
+    """sw_align's plain version: sw_traceback_plain(*sw_wavefront_plain)."""
+    dirs, best = sw_wavefront_plain(qcodes, rcodes, qlens, rlens, mat,
+                                    gap_open, gap_extend)
+    return sw_traceback_plain(dirs, best, qlens)
+
+
+def pack_dirs_nibbles(dirs, qlens, rlens, R: int):
+    """sw_wavefront_plain's direction bytes in the kernel's on-chip layout
+    for R rows a lane: int64[B, steps, ceil(R/8), 32] holding uint32 words,
+    steps = max(rlens) + 31.  Cell (i, j), lane k = (i-1) // R, t = (i-1)
+    % R, sits at step s = j - 1 + k, word t // 8, lane k, bits 4 (t % 8)
+    .. +3; cells outside 1 <= i <= qlen, 1 <= j <= rlen are 0."""
     B, d_pad, W = dirs.shape
     dev = dirs.device
-    for name, t, dtype in (("dirs", dirs, torch.uint8),
-                           ("best", best, torch.int32),
-                           ("qlens", qlens, torch.int32)):
-        if t.dtype != dtype or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: want contiguous {dtype} on {dev}")
-    if best.shape != (B, 2, W) or qlens.shape != (B,):
-        raise ValueError("shape mismatch: dirs [B, d_pad, W], best "
-                         "[B, 2, W], qlens [B]")
+    nw = (R + 7) // 8
+    n_cols = int(rlens.max()) if B else 0
+    steps = n_cols + 31
+    i = torch.arange(1, 32 * R + 1, device=dev)[None, :, None]
+    j = torch.arange(1, n_cols + 1, device=dev)[None, None, :]
+    valid = ((i < W) & (i <= qlens.long()[:, None, None])
+             & (j <= rlens.long()[:, None, None]))
+    d = (i + j).clamp(max=d_pad - 1)
+    flat = dirs.long().reshape(B, -1)
+    nib = flat.gather(1, (d * W + i.clamp(max=W - 1)).expand(
+        B, -1, -1).reshape(B, -1)).reshape(valid.shape)
+    nib = torch.where(valid, nib, 0)
+    k = (i - 1) // R
+    t = (i - 1) % R
+    pos = ((j - 1 + k) * nw + t // 8) * 32 + k
+    words = torch.zeros((B, steps * nw * 32), dtype=torch.int64, device=dev)
+    words.scatter_add_(1, pos.expand(B, -1, -1).reshape(B, -1),
+                       (nib << (4 * (t % 8))).reshape(B, -1))
+    return words.reshape(B, steps, nw, 32)
+
+
+def sw_walk_nibbles_plain(words, best, qlens, R: int, d_pad: int):
+    """The kernel's start-cell choice and walk over pack_dirs_nibbles'
+    layout: each lane's maximum over its R rows of key = h << 11 | (2047 -
+    (i - 1)) (rows past qlen do not count), the warp's maximum key, score
+    and i decoded from it, j from best's diagonal; then the walk of
+    sw_traceback_plain, reading nibbles.  Equals sw_traceback_plain(dirs,
+    best, qlens)."""
+    B, steps, nw, _ = words.shape
+    W = best.shape[2]
+    dev = words.device
+    rows = torch.arange(1, 32 * R + 1, device=dev)
+    ok = (rows < W)[None, :] & (rows[None, :] <= qlens.long()[:, None])
+    bv = torch.where(ok, best[:, 0, rows.clamp(max=W - 1)].long(), 0)
+    keys = (bv << 11) + (2047 - (rows - 1))
+    key = keys.reshape(B, 32, R).max(dim=2).values.max(dim=1).values
+    score = key >> 11
+    i = torch.where(score > 0, 2048 - (key & 2047), 0)
+    j = best[:, 1, :].gather(1, i.clamp(max=W - 1)[:, None])[:, 0].long() - i
+    flat = words.reshape(B, -1)
+
+    def read(i, j):
+        k = (i - 1).clamp(min=0) // R
+        t = (i - 1).clamp(min=0) % R
+        s = (j - 1 + k).clamp(0, steps - 1)
+        w = flat.gather(1, ((s * nw + t // 8) * 32 + k)[:, None])[:, 0]
+        return (w >> (4 * (t % 8))) & 15
+
+    return _walk_plain(read, score, i, j, d_pad)
+
+
+def sw_align(qcodes, rcodes, qlens, rlens, mat, gap_open: int,
+             gap_extend: int):
+    """Smith-Waterman scores and alignment paths of B pairs.
+
+    qcodes uint8[B, m_pad], rcodes uint8[B, n_pad] LETTER_INDEX codes;
+    qlens/rlens int32[B] (<= m_pad, <= n_pad, <= 2048); mat int32[24, 24].
+    Returns (score int32[B], q_ops int16[B, d_pad], r_ops int16[B, d_pad],
+    n_ops int32[B]), d_pad = ceil8(m_pad + n_pad + 1): the first n_ops[b]
+    entries of q_ops/r_ops are the forward path (-1 marks a gap column);
+    entries past n_ops are undefined on CUDA."""
+    _check_args(qcodes, rcodes, qlens, rlens, mat)
+    B, m_pad = qcodes.shape
+    n_pad = rcodes.shape[1]
+    if B and m_pad >= MAX_LEN + 128:
+        raise ValueError(f"m_pad {m_pad} is beyond the kernel's lanes")
+    dev = qcodes.device
     if dev.type == "cpu":
-        return sw_traceback_plain(dirs, best, qlens)
+        return sw_align_plain(qcodes, rcodes, qlens, rlens, mat, gap_open,
+                              gap_extend)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if B:
+        q_max, r_max = torch.stack([qlens.max(), rlens.max()]).tolist()
+        if q_max > min(m_pad, MAX_LEN) or r_max > min(n_pad, MAX_LEN):
+            raise ValueError(f"lengths ({q_max}, {r_max}) exceed the pads "
+                             f"({m_pad}, {n_pad}) or {MAX_LEN}")
+    d_pad = _d_pad(m_pad, n_pad)
+    R = rows_per_lane(m_pad)
     score = torch.empty(B, dtype=torch.int32, device=dev)
     n_ops = torch.empty(B, dtype=torch.int32, device=dev)
     q_ops = torch.empty((B, d_pad), dtype=torch.int16, device=dev)
     r_ops = torch.empty((B, d_pad), dtype=torch.int16, device=dev)
     lib = _kernels.lib()
     with torch.cuda.device(dev):
-        rc = lib.kt_sw_traceback(
-            dirs.data_ptr(), best.data_ptr(), qlens.data_ptr(), B, d_pad, W,
+        warps, use_smem = ctypes.c_int(1), ctypes.c_int(0)
+        _kernels.check(lib.kt_sw_align_plan(R, B, n_pad, ctypes.byref(warps),
+                                            ctypes.byref(use_smem)),
+                       "sw_align plan")
+        # direction words that do not fit in shared memory: global scratch
+        scratch = None if use_smem.value else torch.empty(
+            B * lib.kt_sw_align_pair_bytes(R, n_pad), dtype=torch.uint8,
+            device=dev)
+        rc = lib.kt_sw_align(
+            qcodes.data_ptr(), rcodes.data_ptr(), qlens.data_ptr(),
+            rlens.data_ptr(), mat.data_ptr(), B, m_pad, n_pad, d_pad, R,
+            int(gap_open), int(gap_extend), use_smem.value, warps.value,
+            None if scratch is None else scratch.data_ptr(),
             score.data_ptr(), q_ops.data_ptr(), r_ops.data_ptr(),
             n_ops.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _kernels.check(rc, "sw_traceback")
-    launches["sw_traceback"] += 1
+    _kernels.check(rc, "sw_align")
+    launches["sw_align"] += 1
     return score, q_ops, r_ops, n_ops
 
 
@@ -261,20 +334,19 @@ def pad_pairs(qs: List[np.ndarray], rs: List[np.ndarray]):
 
 def sw_batch_dispatch(qs: List[np.ndarray], rs: List[np.ndarray],
                       scores: MatrixScores, device):
-    """Upload a pair batch and enqueue the DP and traceback on `device`;
+    """Upload a pair batch and enqueue the alignment on `device`;
     sw_batch_resolve finishes.  Returns the device-side op arrays."""
     arrays = [torch.from_numpy(a).to(device) for a in pad_pairs(qs, rs)]
     qcodes, rcodes, qlens, rlens = arrays
     mat = torch.from_numpy(np.ascontiguousarray(
         scores.sub_matrix, dtype=np.int32)).to(device)
-    dirs, best = sw_wavefront(qcodes, rcodes, qlens, rlens, mat,
-                              scores.gap_open, scores.gap_extend)
-    return sw_traceback(dirs, best, qlens)
+    return sw_align(qcodes, rcodes, qlens, rlens, mat, scores.gap_open,
+                    scores.gap_extend)
 
 
 def sw_batch_resolve(handle) -> List[Tuple[int, list, list]]:
     """Fetch the op arrays; per pair (best_score, q_ops, r_ops) like
-    kaamer_tpu.ops.swalign._smith_waterman."""
+    ops.swalign._smith_waterman."""
     score, q_ops, r_ops, n_ops = (t.cpu().numpy() for t in handle)
     out = []
     for b, s in enumerate(score.tolist()):

@@ -1,24 +1,31 @@
 """Protein search flow on the torch engine (kaamer_tpu/search/pipeline.py).
 
-run_search reuses the JAX package's protein_search (reading, batching,
-filtering, entry fetches) and its TSV/JSON formatters, which only call the
-engine's dispatch/schedule/collect protocol.  The -aln step is this
-module's own: the JAX package's _aligned_results is bound to
-kaamer_tpu.ops.swalign, which dispatches to the Pallas kernel.
+The protein path is the JAX package's, copied unchanged: queries are read
+and bucketed by length (_batched), kept `depth` batches in flight on the
+engine's dispatch/schedule/prefetch/collect protocol (_pipelined),
+filtered and formatted (search/results.py), and -aln aligns the kept hits
+in flushes of ALIGN_FLUSH_PAIRS pairs on the engine's device
+(ops/swalign.py).  Nucleotide and FASTQ search are not ported yet.
 """
 
 from __future__ import annotations
 
 from collections import deque
-from typing import Iterator, List
+from typing import Dict, Iterator, List
 
-from kaamer_tpu.search import results as fmt
-from kaamer_tpu.search.options import PROTEIN, SearchOptions
-from kaamer_tpu.search.pipeline import ALIGN_FLUSH_PAIRS, protein_search
-from kaamer_tpu.search.results import QueryResult
+import numpy as np
 
+from ..io_formats.readers import QueryRecord, read_fasta_queries
+from . import results as fmt
 from ..ops import swalign
-from .engine import SearchEngine
+from .engine import QueryCounts, SearchEngine, _next_pow2
+from .options import PROTEIN, PROTEIN_QUERY, SearchOptions
+from .results import Hit, QueryResult
+
+# Queries per device dispatch (pipeline.py:42-46).
+BATCH_MAX = 2048
+# (query, subject) pairs per -aln device batch (pipeline.py:531).
+ALIGN_FLUSH_PAIRS = 256
 
 
 def run_search(engine: SearchEngine, opts: SearchOptions,
@@ -53,6 +60,151 @@ def run_search(engine: SearchEngine, opts: SearchOptions,
 
     if opts.OutFormat == "json":
         yield fmt.JSON_EPILOGUE.encode()
+
+
+def _batched(queries, size_of=lambda q: q.SizeInKmer):
+    """Group queries into batches of similar length (same power-of-two
+    k-mer-count bucket) to limit padding waste."""
+    buckets: Dict[int, List] = {}
+    for q in queries:
+        b = _next_pow2(max(size_of(q), 8))
+        lst = buckets.setdefault(b, [])
+        lst.append(q)
+        if len(lst) >= BATCH_MAX:
+            yield lst
+            buckets[b] = []
+    for lst in buckets.values():
+        if lst:
+            yield lst
+
+
+def _pipelined(engine: SearchEngine, batches, k: int, depth: int = 4,
+               positions: bool = False, cancel=None,
+               seq_of=lambda q: q.Sequence, size_of=lambda q: q.SizeInKmer,
+               min_top: int = 0):
+    """Keep `depth` batches in flight on the device while finalizing earlier
+    ones on the host (overlaps upload/compute/fetch).
+
+    cancel (optional callable) is polled before each dispatch; once true, no
+    further queries are read or dispatched and in-flight batches are drained
+    without yielding -- the serving analogue of the reference's cancelQuery
+    flag checked by its readers and workers (search.go:157-166, 280-282).
+
+    seq_of/size_of extract sequence and k-mer count from a batch element
+    (QueryRecord for protein search; plain tuples on the ORF fast path).
+
+    min_top > 0: queries whose top count falls below it come back as None
+    instead of a QueryCounts (vectorized discard in the engine; the
+    translated-search MinKMatch gate, search_nucleotide.go:116)."""
+    # three-stage protocol when the engine supports it: schedule (dispatch
+    # the phase-2 chunks) one batch behind the newest dispatch, so the
+    # device queue never drains while the host finalizes older batches
+    schedule = getattr(engine, "schedule_batch", None)
+    collect = getattr(engine, "collect_batch", None)
+    if schedule is None or collect is None:
+        schedule, collect = (lambda h: h), engine.resolve_batch
+    # certificate re-runs dispatch as early as possible, not at collect
+    # time (a lazy re-run queues behind every later batch's device work;
+    # engine.prefetch_batch docstring)
+    prefetch = getattr(engine, "prefetch_batch", lambda s, m=0: s)
+
+    pending = deque()  # entries [batch, handle, sched-or-None]
+    cancelled = False
+    for batch in batches:
+        if cancel is not None and cancel():
+            cancelled = True
+            break
+        handle = engine.dispatch_batch(
+            [seq_of(q) for q in batch], [size_of(q) for q in batch], k=k,
+            positions=positions,
+        )
+        pending.append([batch, handle, None])
+        if len(pending) >= 2 and pending[-2][2] is None:
+            pending[-2][2] = schedule(pending[-2][1])
+        if len(pending) >= 3 and pending[-3][2] is not None:
+            pending[-3][2] = prefetch(pending[-3][2], min_top)
+        if len(pending) >= depth:
+            b, h, s = pending.popleft()
+            yield b, collect(s if s is not None else schedule(h), min_top)
+    while pending:
+        b, h, s = pending.popleft()
+        res = collect(s if s is not None else schedule(h), min_top)
+        if not cancelled:
+            yield b, res
+
+
+def protein_search(engine: SearchEngine, opts: SearchOptions,
+                   cancel=None) -> Iterator[QueryResult]:
+    def queries():
+        for q in read_fasta_queries(opts.File, is_protein=True):
+            q.Type = PROTEIN_QUERY
+            # The reference kills the whole worker on a short query
+            # (search_protein.go:74-76, a bug); we skip just the query.
+            if q.SizeInKmer < 7:
+                continue
+            yield q
+
+    k = max(opts.MaxResults, 1)
+    for batch, counts in _pipelined(engine, _batched(queries()), k,
+                                    positions=opts.ExtractPositions,
+                                    cancel=cancel):
+        for q, qc in zip(batch, counts):
+            if qc is None:  # engines only return None under min_top gating
+                continue
+            qr = _build_result(engine, q, qc, opts,
+                               need_positions=opts.ExtractPositions)
+            if qr is not None and qr.Hits:
+                yield qr
+
+
+def _build_result(
+    engine: SearchEngine,
+    q: QueryRecord,
+    qc: QueryCounts,
+    opts: SearchOptions,
+    need_positions: bool,
+) -> QueryResult:
+    ext_ids = np.asarray(engine.art.protein_ids)
+    keys = ext_ids[np.asarray(qc.hit_rows).astype(np.int64)].tolist()
+    hits = [Hit(Key=key, Kmatch=km)
+            for key, km in zip(keys, np.asarray(qc.counts).tolist())]
+    qr = QueryResult(Query=q, Hits=hits, PositionHits={}, HitEntries={})
+    fmt.filter_results(qr, opts)
+    if not qr.Hits:
+        return qr
+    if need_positions:
+        rows = [int(r) for r, c in zip(qc.hit_rows, qc.counts)][: len(qr.Hits)]
+        bitmaps = engine.position_bitmaps_np(qc, rows)
+        qr.PositionHits = {
+            int(ext_ids[r]): bm for r, bm in bitmaps.items()
+        }
+    _fetch_entries(engine, qr)
+    return qr
+
+
+# Hit Protein records are parsed from the artifact blob (JSON decode per
+# row); a bounded per-engine cache amortizes repeated hits across queries.
+_ENTRY_CACHE_MAX = 65536
+
+
+def _fetch_entries(engine: SearchEngine, qr: QueryResult) -> None:
+    art = engine.art
+    cache = getattr(engine, "_entry_cache", None)
+    if cache is None:
+        cache = engine._entry_cache = {}
+    for h in qr.Hits:
+        if h.Key in qr.HitEntries:
+            continue
+        prot = cache.get(h.Key)
+        if prot is None:
+            row = art.row_for_id(h.Key)
+            if row is None:
+                continue
+            prot = art.protein(row)
+            if len(cache) >= _ENTRY_CACHE_MAX:
+                cache.clear()
+            cache[h.Key] = prot
+        qr.HitEntries[h.Key] = prot
 
 
 def _aligned_results(engine: SearchEngine, results, opts: SearchOptions):

@@ -5,29 +5,156 @@
                                    JAX server's (parse_search_options)
   POST /api/search/{nucleotide,fastq} -> 501 (not ported yet)
 
-Form parsing, option parsing and the disconnect poller are the JAX
-server's; the handler is this module's own because the JAX make_handler
-calls the JAX package's run_search.
+Form parsing, option parsing, the default options and the disconnect
+poller are the JAX server's (kaamer_tpu/server/app.py:42-164), copied
+unchanged; the handler is this module's own.
 """
 
 from __future__ import annotations
 
+import email.parser
+import email.policy
 import json
 import os
+import select
+import socket
 import tempfile
 import time
 import urllib.parse
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from kaamer_tpu.index.artifact import load_db
-from kaamer_tpu.search.options import PROTEIN
-from kaamer_tpu.server.app import (_default_options, _disconnect_poller,
-                                   _parse_form, parse_search_options)
-
+from ..index.artifact import load_db
 from ..search.engine import SearchEngine
+from ..search.options import PROTEIN, SearchOptions
 from ..search.pipeline import run_search
 
 _NOT_PORTED = ("/api/search/nucleotide", "/api/search/fastq")
+
+
+def _parse_form(handler: BaseHTTPRequestHandler):
+    """Parse urlencoded or multipart form bodies into ({field: value},
+    {field: bytes})."""
+    length = int(handler.headers.get("Content-Length") or 0)
+    body = handler.rfile.read(length) if length else b""
+    ctype = handler.headers.get("Content-Type", "")
+
+    fields = {}
+    files = {}
+    if ctype.startswith("multipart/form-data"):
+        raw = (
+            b"Content-Type: " + ctype.encode() + b"\r\nMIME-Version: 1.0\r\n\r\n" + body
+        )
+        msg = email.parser.BytesParser(policy=email.policy.HTTP).parsebytes(raw)
+        for part in msg.iter_parts():
+            name = part.get_param("name", header="content-disposition")
+            if name is None:
+                continue
+            payload = part.get_payload(decode=True) or b""
+            filename = part.get_filename()
+            if filename is not None:
+                files[name] = payload
+            else:
+                fields[name] = payload.decode("utf-8", errors="replace")
+    elif ctype.startswith("application/x-www-form-urlencoded"):
+        for k, v in urllib.parse.parse_qsl(body.decode("utf-8", errors="replace")):
+            fields[k] = v
+    return fields, files
+
+
+def parse_search_options(
+    opts: SearchOptions, fields: dict, files: dict, tmp_folder: str
+):
+    """parseSearchOptions equivalent (api/server.go:220-315).  Returns an
+    error string or None."""
+    input_type = fields.get("type", "")
+    opts.InputType = input_type
+    if input_type == "string":
+        path = os.path.join(tmp_folder, uuid.uuid4().hex + ".fasta")
+        with open(path, "w") as f:
+            f.write(fields.get("sequence", ""))
+        opts.File = path
+    elif input_type == "file":
+        if "file" not in files:
+            return "no file uploaded"
+        path = os.path.join(tmp_folder, uuid.uuid4().hex + ".fasta")
+        with open(path, "wb") as f:
+            f.write(files["file"])
+        opts.File = path
+    elif input_type == "path":
+        f = fields.get("file", "")
+        if f:
+            if not os.path.exists(f):
+                return "File does not exist!"
+            opts.File = f
+    else:
+        return "Need request type (string|file|path)"
+
+    def _int(name, default):
+        try:
+            return int(fields.get(name, ""))
+        except ValueError:
+            return default
+
+    def _float(name, default):
+        try:
+            return float(fields.get(name, ""))
+        except ValueError:
+            return default
+
+    if fields.get("max-results", ""):
+        opts.MaxResults = _int("max-results", opts.MaxResults)
+    opts.GeneticCode = _int("gcode", opts.GeneticCode)
+    if fields.get("output-format", "").lower() == "json":
+        opts.OutFormat = "json"
+    if fields.get("positions", "").lower() == "true":
+        opts.ExtractPositions = True
+    if fields.get("annotations", "").lower() == "true":
+        opts.Annotations = True
+    if fields.get("align", "").lower() == "true":
+        opts.Align = True
+    opts.MinKMatch = _int("minkmatch", opts.MinKMatch)
+    opts.MinKRatio = _float("minkratio", opts.MinKRatio)
+    if fields.get("sub-matrix", "").lower() not in ("", "blosum62"):
+        opts.SubMatrix = fields["sub-matrix"].lower()
+    opts.GapOpen = _int("gap-open", opts.GapOpen)
+    opts.GapExtend = _int("gap-extend", opts.GapExtend)
+    return None
+
+
+def _disconnect_poller(conn: socket.socket):
+    """Zero-timeout liveness check on the client socket: after the request
+    body is consumed, the connection becoming readable with EOF (or an
+    error) means the client went away.  The pipeline polls this between
+    device batches -- the reference instead polls the request context every
+    3 seconds during a search (search.go:157-166); per-batch polling reacts
+    faster at negligible cost (one select syscall per batch)."""
+
+    def cancelled() -> bool:
+        try:
+            r, _, _ = select.select([conn], [], [], 0)
+            if r:
+                return conn.recv(1, socket.MSG_PEEK) == b""
+        except (OSError, ValueError):
+            return True
+        return False
+
+    return cancelled
+
+
+def _default_options(seq_type: int) -> SearchOptions:
+    return SearchOptions(
+        GeneticCode=11,
+        SequenceType=seq_type,
+        OutFormat="tsv",
+        MaxResults=10,
+        ExtractPositions=False,
+        MinKMatch=10,
+        MinKRatio=0.05,
+        SubMatrix="blosum62",
+        GapOpen=11,
+        GapExtend=1,
+    )
 
 
 def make_handler(engine: SearchEngine, tmp_folder: str):

@@ -8,13 +8,15 @@ Without a CUDA device every test here skips (the kernels have no CPU
 mode).  Exact equality: direction bytes, scores, paths, checksums and
 counts are integers."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
-from kaamer_tpu.ops.matrices import LETTER_INDEX, get_matrix_scores
 from kaamer_tpu_torch.bench import probe_microbench as pmb
-from kaamer_tpu_torch.ops import hotset
+from kaamer_tpu_torch.ops import _kernels, hotset
+from kaamer_tpu_torch.ops.matrices import LETTER_INDEX, get_matrix_scores
 from kaamer_tpu_torch.ops import probe_bench as pb
 from kaamer_tpu_torch.ops import swalign_cuda as swc
 
@@ -29,19 +31,7 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _batch(rng, n, lo, hi, device):
-    """Half related pairs (point mutations, a deletion), half unrelated,
-    plus a self alignment and a pair with no positive cell."""
-    pairs = [("WWWW", "PPPP"), ("MELPNIMHPVAKLSTAL", "MELPNIMHPVAKLSTAL")]
-    for t in range(n):
-        q = "".join(rng.choice(list(AA), size=int(rng.integers(lo, hi))))
-        r = list(q) if t % 2 == 0 else list(
-            rng.choice(list(AA), size=int(rng.integers(lo, hi))))
-        for _ in range(len(r) // 12):
-            r[int(rng.integers(0, len(r)))] = AA[int(rng.integers(0, 20))]
-        if t % 2 == 0 and len(r) > 30:
-            del r[10:18]
-        pairs.append((q, "".join(r)))
+def _tensors(pairs, device):
     codes = lambda s: LETTER_INDEX[np.frombuffer(s.encode(), np.uint8)]
     arrays = swc.pad_pairs([codes(q) for q, _ in pairs],
                            [codes(r) for _, r in pairs])
@@ -49,42 +39,100 @@ def _batch(rng, n, lo, hi, device):
     return [torch.from_numpy(a).to(device) for a in arrays] + [mat.to(device)]
 
 
-@pytest.mark.parametrize("lo,hi", [(20, 300), (1500, 2049)])
-def test_wavefront_and_traceback_match_plain(cuda, lo, hi):
-    rng = np.random.default_rng(hi)
-    qc, rc, ql, rl, mat = _batch(rng, 24, lo, hi, cuda)
-    dirs, best = swc.sw_wavefront(qc, rc, ql, rl, mat, 11, 1)
-    p_dirs, p_best = swc.sw_wavefront_plain(qc, rc, ql, rl, mat, 11, 1)
-    B, d_pad, W = dirs.shape
-    d = torch.arange(d_pad, device=cuda)[None, :, None]
-    i = torch.arange(W, device=cuda)[None, None, :]
-    q = ql.long()[:, None, None]
-    r = rl.long()[:, None, None]
-    valid = (i >= 1) & (i <= q) & (d - i >= 1) & (d - i <= r)
-    assert torch.equal(dirs[valid], p_dirs[valid])
-    lanes = torch.arange(W, device=cuda)[None, :] <= ql.long()[:, None]
-    for c in (0, 1):
-        assert torch.equal(best[:, c][lanes], p_best[:, c][lanes])
+def _seq(rng, lo, hi):
+    return "".join(rng.choice(list(AA), size=int(rng.integers(lo, hi + 1))))
 
-    got = [t.cpu() for t in swc.sw_traceback(dirs, best, ql)]
-    want = [t.cpu() for t in swc.sw_traceback_plain(dirs, best, ql)]
+
+def _batch(rng, n, lo, hi, device, r_lo=None, r_hi=None):
+    """Half related pairs (point mutations, a deletion), half unrelated,
+    plus a self alignment and a pair with no positive cell.  Query lengths
+    lo..hi; unrelated references r_lo..r_hi (default the same)."""
+    r_lo, r_hi = r_lo or lo, r_hi or hi
+    pairs = [("WWWW", "PPPP"), ("MELPNIMHPVAKLSTAL", "MELPNIMHPVAKLSTAL")]
+    for t in range(n):
+        q = _seq(rng, lo, hi)
+        r = list(q) if t % 2 == 0 and (r_lo, r_hi) == (lo, hi) else list(
+            _seq(rng, r_lo, r_hi))
+        for _ in range(len(r) // 12):
+            r[int(rng.integers(0, len(r)))] = AA[int(rng.integers(0, 20))]
+        if t % 2 == 0 and len(r) > 30:
+            del r[10:18]
+        pairs.append((q, "".join(r)))
+    return _tensors(pairs, device)
+
+
+def _assert_align_matches_plain(qc, rc, ql, rl, mat):
+    """sw_align on the card == sw_traceback_plain(*sw_wavefront_plain) on
+    the same card tensors: scores, lengths and the first n_ops ops."""
+    before = swc.launches["sw_align"]
+    got = [t.cpu() for t in swc.sw_align(qc, rc, ql, rl, mat, 11, 1)]
+    assert swc.launches["sw_align"] == before + 1
+    want = [t.cpu() for t in swc.sw_align_plain(qc, rc, ql, rl, mat, 11, 1)]
     assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
     for b, n in enumerate(got[3].tolist()):
         assert torch.equal(got[1][b, :n], want[1][b, :n])
         assert torch.equal(got[2][b, :n], want[2][b, :n])
+    return got
+
+
+@pytest.mark.parametrize("lo,hi", [(20, 300), (1500, 2048)])
+def test_wavefront_and_traceback_match_plain(cuda, lo, hi):
+    rng = np.random.default_rng(hi)
+    got = _assert_align_matches_plain(*_batch(rng, 24, lo, hi, cuda))
     assert got[0][0] == 0 and got[0][1] > 0
-    assert swc.launches["sw_wavefront"] > 0 and swc.launches["sw_traceback"] > 0
+
+
+@pytest.mark.parametrize("bucket", range(1, 17))
+def test_sw_align_every_length_bucket(cuda, bucket):
+    """Queries in each 128-bucket of pad_pairs (R = 4 .. 64 rows a lane;
+    shared-memory directions in the short buckets, the global scratch in
+    the long ones), from 30 residues up to 2047."""
+    rng = np.random.default_rng(100 + bucket)
+    lo, hi = max(30, 128 * (bucket - 1)), 128 * bucket - 1
+    qc, rc, ql, rl, mat = _batch(rng, 10, lo, hi, cuda)
+    assert swc.rows_per_lane(qc.shape[1]) == 4 * bucket
+    _assert_align_matches_plain(qc, rc, ql, rl, mat)
+
+
+@pytest.mark.parametrize("q_len,r_len", [((30, 60), (1800, 2048)),
+                                         ((1800, 2048), (30, 60))])
+def test_sw_align_skewed_shapes(cuda, q_len, r_len):
+    """n >> m and m >> n, with a query of exactly 2048 residues in the
+    second case (the m_pad = 2175 bucket, every row of R = 64 used)."""
+    rng = np.random.default_rng(q_len[0])
+    pairs = [(_seq(rng, *q_len), _seq(rng, *r_len)) for _ in range(8)]
+    if q_len[1] == 2048:
+        q = _seq(rng, 2048, 2048)
+        pairs += [(q, q[1000:1060]), (q, q[1990:])]
+    _assert_align_matches_plain(*_tensors(pairs, cuda))
+
+
+@pytest.mark.parametrize("n,lo,hi,warps,use_smem", [
+    (300, 20, 120, 3, 1), (600, 200, 250, 5, 1), (300, 480, 510, 3, 0)])
+def test_sw_align_many_warps_a_block(cuda, n, lo, hi, warps, use_smem):
+    """Batches wider than the H100's 132 SMs, so that a block holds several
+    pairs (warps): directions in shared memory (R = 4 and R = 8), and in
+    the global scratch (R = 16, where three pairs' directions overflow a
+    block's 227 KB of shared memory)."""
+    rng = np.random.default_rng(n + lo)
+    qc, rc, ql, rl, mat = _batch(rng, n, lo, hi, cuda)
+    plan = ctypes.c_int(0), ctypes.c_int(0)
+    rc_ = _kernels.lib().kt_sw_align_plan(
+        swc.rows_per_lane(qc.shape[1]), qc.shape[0], rc.shape[1],
+        *map(ctypes.byref, plan))
+    assert rc_ == 0 and [p.value for p in plan] == [warps, use_smem]
+    _assert_align_matches_plain(qc, rc, ql, rl, mat)
 
 
 def test_wrapper_rejects_bad_arguments(cuda):
     rng = np.random.default_rng(0)
     qc, rc, ql, rl, mat = _batch(rng, 4, 20, 40, cuda)
     with pytest.raises(ValueError):
-        swc.sw_wavefront(qc.int(), rc, ql, rl, mat, 11, 1)
+        swc.sw_align(qc.int(), rc, ql, rl, mat, 11, 1)
     with pytest.raises(ValueError):
-        swc.sw_wavefront(qc, rc, ql, rl.cpu(), mat, 11, 1)
+        swc.sw_align(qc, rc, ql, rl.cpu(), mat, 11, 1)
     with pytest.raises(ValueError):
-        swc.sw_wavefront(qc, rc[:, :8].contiguous(), ql, rl, mat, 11, 1)
+        swc.sw_align(qc, rc[:, :8].contiguous(), ql, rl, mat, 11, 1)
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,6 @@
 """Torch port vs JAX: the engine's phase 1 (all ten outputs) and cold
-phase 2, on a small domain-skewed database.  Exact equality."""
+phase 2, on a small domain-skewed database.  Exact equality.  Each
+package loads the artifact with its own load_db."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +11,7 @@ from kaamer_tpu import codec
 from kaamer_tpu.index.artifact import load_db
 from kaamer_tpu.index.build import build_db
 from kaamer_tpu.search import engine as je
+from kaamer_tpu_torch.index.artifact import load_db as torch_load_db
 from kaamer_tpu_torch.search import engine as te
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
@@ -63,7 +65,7 @@ def _phase1_both(art, queries, hot_thresh):
                            jnp.asarray(sizes, jnp.int32),
                            hash_log2=art.hash_log2, miss_start=miss,
                            hot_thresh=hot_thresh, width=width)
-    state = te.engine_state_from_artifact(art, "cpu")
+    state = te.engine_state_from_artifact(torch_load_db(art.path), "cpu")
     got = te._phase1_impl(state["table"],
                           torch.from_numpy(wire.view(np.int32)),
                           torch.tensor(sizes), hash_log2=art.hash_log2,
@@ -148,7 +150,7 @@ def hot_inputs(skew):
     hot sets and membership matrix of both engines."""
     art, queries = skew
     jh = je.SearchEngine(art)
-    th = te.SearchEngine(art, "cpu")
+    th = te.SearchEngine(torch_load_db(art.path), "cpu")
     assert jh.hot_starts is not None and th.hot_thresh == jh.hot_thresh
     _, state, want1, got1 = _phase1_both(art, queries, jh.hot_thresh)
     assert int(got1[9].max()) > 0

@@ -1,5 +1,7 @@
 """End to end: the torch port's run_search and server vs the JAX package,
-byte for byte, on one small domain-skewed database (CPU tensors)."""
+byte for byte, on one small domain-skewed database (CPU tensors).  Each
+package loads the artifact with its own load_db and takes its options
+from its own _default_options."""
 
 import functools
 import json
@@ -16,16 +18,17 @@ import pytest
 import torch
 
 import kaamer_tpu.ops.swalign_pallas as swalign_pallas
-from kaamer_tpu.index.artifact import load_db
+from kaamer_tpu.index.artifact import load_db as jax_load_db
 from kaamer_tpu.index.build import build_db
 from kaamer_tpu.search.engine import SearchEngine as JaxEngine
 from kaamer_tpu.search.options import NUCLEOTIDE, PROTEIN
 from kaamer_tpu.search.pipeline import run_search as jax_run_search
-from kaamer_tpu.server.app import _default_options
+from kaamer_tpu.server.app import _default_options as jax_default_options
+from kaamer_tpu_torch.index.artifact import load_db
 from kaamer_tpu_torch.ops import swalign as torch_swalign
 from kaamer_tpu_torch.search.engine import SearchEngine
 from kaamer_tpu_torch.search.pipeline import run_search
-from kaamer_tpu_torch.server.app import make_server
+from kaamer_tpu_torch.server.app import _default_options, make_server
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,11 +67,13 @@ def db(tmp_path_factory):
     _write_queries(tmp / "q.fasta", rng, seqs, 40, 10**6)
     _write_queries(tmp / "q_aln.fasta", rng, seqs, 4, 120)
     art = load_db(str(tmp / "db"))
-    return art, tmp, SearchEngine(art, "cpu"), JaxEngine(art)
+    return (art, tmp, SearchEngine(art, "cpu"),
+            JaxEngine(jax_load_db(str(tmp / "db"))))
 
 
-def _opts(path, out_format="tsv", positions=False, align=False, max_res=10):
-    o = _default_options(PROTEIN)
+def _opts(path, out_format="tsv", positions=False, align=False, max_res=10,
+          defaults=_default_options):
+    o = defaults(PROTEIN)
     o.File, o.OutFormat = str(path), out_format
     o.ExtractPositions, o.Align, o.MaxResults = positions, align, max_res
     return o
@@ -79,7 +84,8 @@ def _opts(path, out_format="tsv", positions=False, align=False, max_res=10):
 def test_run_search_bytes_equal_jax(db, out_format, positions):
     art, tmp, engine, jax_engine = db
     want = b"".join(jax_run_search(
-        jax_engine, _opts(tmp / "q.fasta", out_format, positions)))
+        jax_engine, _opts(tmp / "q.fasta", out_format, positions,
+                          defaults=jax_default_options)))
     got = b"".join(run_search(engine, _opts(tmp / "q.fasta", out_format,
                                             positions)))
     assert got == want
@@ -95,7 +101,8 @@ def test_aln_bytes_equal_jax(db, monkeypatch):
         swalign_pallas.sw_batch_dispatch, interpret=True))
     host_before = torch_swalign.HOST_DP_PAIRS
     want = b"".join(jax_run_search(
-        jax_engine, _opts(tmp / "q_aln.fasta", align=True, max_res=3)))
+        jax_engine, _opts(tmp / "q_aln.fasta", align=True, max_res=3,
+                          defaults=jax_default_options)))
     got = b"".join(run_search(engine, _opts(tmp / "q_aln.fasta", align=True,
                                             max_res=3)))
     assert got == want
@@ -152,7 +159,8 @@ def test_forced_reruns_agree_with_jax(db, tmp_path, monkeypatch):
     the certificate, both engines flag the same rows and re-run them, and
     the results and run_search bytes stay equal."""
     art = db[0]
-    engine, jax_engine = SearchEngine(art, "cpu"), JaxEngine(art)
+    engine = SearchEngine(art, "cpu")
+    jax_engine = JaxEngine(jax_load_db(art.path))
     flagged = {"port": [], "jax": []}
     for name, eng in (("port", engine), ("jax", jax_engine)):
         eng._k_cold = 1
@@ -173,7 +181,8 @@ def test_forced_reruns_agree_with_jax(db, tmp_path, monkeypatch):
     path.write_text("".join(f">r{i} rerun\n{q}\n"
                             for i, q in enumerate(queries)))
     assert (b"".join(run_search(engine, _opts(path)))
-            == b"".join(jax_run_search(jax_engine, _opts(path))))
+            == b"".join(jax_run_search(
+                jax_engine, _opts(path, defaults=jax_default_options))))
 
 
 def test_min_top_gates_with_exact_counts(db):
@@ -258,23 +267,27 @@ def test_server_answers_over_http(db):
 
 
 def test_port_search_never_imports_jax(db):
-    """Run in a fresh interpreter: the test process itself imports jax."""
+    """Run in a fresh interpreter: the test process itself imports jax.
+    The port serves -aln search on its own load_db and options, and neither
+    jax nor the JAX package is imported."""
     art, tmp, _, _ = db
     code = (
         "import sys\n"
-        "from kaamer_tpu.index.artifact import load_db\n"
-        "from kaamer_tpu.search.options import PROTEIN\n"
-        "from kaamer_tpu.server.app import _default_options\n"
+        "from kaamer_tpu_torch.index.artifact import load_db\n"
+        "from kaamer_tpu_torch.search.options import PROTEIN\n"
+        "from kaamer_tpu_torch.server.app import _default_options\n"
         "from kaamer_tpu_torch.search.engine import SearchEngine\n"
         "from kaamer_tpu_torch.search.pipeline import run_search\n"
-        "import kaamer_tpu_torch.cli, kaamer_tpu_torch.server.app\n"
+        "import kaamer_tpu_torch.cli\n"
         "o = _default_options(PROTEIN)\n"
         f"o.File = {str(tmp / 'q_aln.fasta')!r}\n"
         "o.Align = True\n"
         f"e = SearchEngine(load_db({str(tmp / 'db')!r}), 'cpu')\n"
         "out = b''.join(run_search(e, o))\n"
         "assert out.count(b'\\n') > 2, out\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'kaamer_tpu', 'bench')]\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -1,7 +1,7 @@
 """Smith-Waterman: the torch port's plain wavefront and traceback vs the
 Pallas kernel (interpret mode) and the host DP.  Exact equality: scores,
-direction bytes and alignment paths are integers.  The CUDA kernels are
-held against these plain versions in tests/test_torch_cuda.py."""
+direction bytes and alignment paths are integers.  The CUDA kernel
+(sw_align) is held against their composition in tests/test_torch_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -84,8 +84,8 @@ def test_plain_wavefront_matches_pallas_kernel():
         jnp.asarray(rc.numpy().astype(np.int32)),
         jnp.asarray(ql.numpy()[None, :]), jnp.asarray(rl.numpy()[None, :]),
         jnp.asarray(SCORES.sub_matrix))
-    dirs, best = swc.sw_wavefront(qc, rc, ql, rl, mat, SCORES.gap_open,
-                                  SCORES.gap_extend)
+    dirs, best = swc.sw_wavefront_plain(qc, rc, ql, rl, mat,
+                                        SCORES.gap_open, SCORES.gap_extend)
     assert dirs.shape == want_dirs.shape and best.shape == want_best.shape
     _assert_same_wavefront(dirs.numpy(), best.numpy(), np.asarray(want_dirs),
                            np.asarray(want_best), ql.numpy(), rl.numpy())
@@ -126,6 +126,6 @@ def test_routing_rule_counts_host_pairs():
     handle = tsw.align_batch_dispatch([(long_q, long_q)] * 4, stats,
                                       "blosum62", 11, 1, device="cpu")
     assert handle[3] is None  # left to the host DP
-    with pytest.raises(host_sw.NoMatrixError):
+    with pytest.raises(tsw.NoMatrixError):
         tsw.align_batch_dispatch(pairs, stats, "nosuch", 11, 1, device="cpu")
 
