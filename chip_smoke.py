@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """GPU smoke run of the torch port (kaamer_tpu_torch) on one CUDA card.
 
-Drives the port's two paths -- the probe microbenchmarks, and protein
-search with and without -aln served over HTTP from a domain-skewed
-database with hot sets on -- and checks them.  Imports nothing of jax,
-the JAX package or the root bench.py: the database comes from the port's
-own generator (kaamer_tpu_torch.bench.data, the same seed-77 artifact).
+Drives the port's paths -- the probe microbenchmarks, and protein,
+nucleotide and FASTQ search with and without -aln and position bitmaps,
+served over HTTP from a domain-skewed database with hot sets on -- and
+checks them.  Imports nothing of jax, the JAX package or the root
+bench.py: the database comes from the port's own generator
+(kaamer_tpu_torch.bench.data, the same seed-77 artifact).
 
   1. builds the CUDA kernels (csrc/*.cu, one nvcc each, in parallel);
   2. probe phase: every Pallas probe configuration of the scripts (P1-P6)
@@ -23,18 +24,29 @@ own generator (kaamer_tpu_torch.bench.data, the same seed-77 artifact).
   4. builds (or reuses, .bench_cache/skew_N) the skewed database and loads
      it onto the card with its hot sets;
   5. serves it with the port's server and POSTs R1 (2048 queries, TSV),
-     R2 (256 queries, align=true) and R3 (64 queries, JSON + positions),
-     counting each request's kernel launches from 0;
-  6. checks sampled R1 counts against a numpy bincount reference and
-     sampled R2 alignments against the plain SW versions on the card, and
-     that R2 launched sw_align;
-  7. serves R1 again from a cold engine (hot=False): the bytes must equal
-     the hot engine's.
+     R2 (256 queries, align=true), R3 (64 queries, JSON + positions), R4
+     (8192 FASTQ reads, TSV: the lean translated path) and R5 (64
+     contigs of 4 genes each, JSON + positions + align=true), each twice
+     (the second is the warm wall), counting the first pass's kernel
+     launches from 0; R2 and R5 must launch sw_align;
+  6. sync proof: dispatch_batch and align_batch_dispatch under
+     torch.cuda.set_sync_debug_mode("error"), and schedule_batch under
+     "warn", which must wait for the card exactly once (the totals);
+  7. checks sampled R1 counts and sampled R4/R5 served KMatch values
+     against a numpy bincount reference, sampled R2 and R5 alignments
+     against the plain SW versions on the card, R3 and R5 device bitmaps
+     against the host binary search (member_np), and that R3 and R5 with
+     the bitmap gate off (host bitmaps) give the same bytes;
+  8. times the position-bitmap branch (torch.profiler, device time of a
+     batch with and without bitmaps) and reads the peak device memory;
+  9. serves R1, R3, R4 and R5 again from a cold engine (hot=False): the
+     bytes must equal the hot engine's.
 
-Prints the card (nvidia-smi name and power limit), per-request times, one
-JSON line of kernel results (each with its bound: the larger of its bytes
-over 3.35 TB/s and its int32 operations over 16.7 T/s), and as its last
-line {"ok": true, "device": {...}}.  Any failure raises (exit code != 0).
+Prints the card (nvidia-smi name and power limit), per-request and
+per-phase times, one JSON line of kernel results (each with its bound: the
+larger of its bytes over 3.35 TB/s and its int32 operations over 16.7
+T/s), and as its last line {"ok": true, "device": {...}}.  Any failure
+raises (exit code != 0).
 
     python3 chip_smoke.py [--proteins N]
 """
@@ -46,19 +58,18 @@ import itertools
 import json
 import multiprocessing
 import os
-import subprocess
 import sys
-import tempfile
-import threading
 import time
-import urllib.parse
-import urllib.request
 from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
+from kaamer_tpu_torch.bench.serving import (Served, card_line, post,
+                                            smoke_requests)
+
 AA = "ACDEFGHIKLMNPQRSTVWY"
 KMER_ALPHABET = "ACDEFGHIKLMNPQRSTUVWY"  # the 21-letter 7-mer alphabet
+KMER_SIZE = 7
 # the main path's kernel and the Pallas kernel it replaces (with its XLA
 # traceback, swalign_pallas.py:166)
 KERNELS = (("sw_align", "kaamer_tpu/ops/swalign_pallas.py:50"),)
@@ -195,12 +206,9 @@ def median_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Mean device time (ms) of the CUDA kernels whose name holds `kernel`
-    over reps calls of fn, by torch.profiler: the kernel alone, without
-    the host's launch cost.  The profiler may record fewer launches than
-    were made (4 of 20 seen once on the H100); the mean is over those it
-    recorded, and the run fails if it recorded none."""
+def device_events(fn, reps: int):
+    """The device activities (kernels, copies) torch.profiler records over
+    reps calls of fn, after a warm call, by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -212,11 +220,27 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time (ms) of the CUDA kernels whose name holds `kernel`
+    over reps calls of fn, by torch.profiler: the kernel alone, without
+    the host's launch cost.  The profiler may record fewer launches than
+    were made (4 of 20 seen once on the H100); the mean is over those it
+    recorded, and the run fails if it recorded none."""
+    hits = [e for e in device_events(fn, reps) if kernel in e.key]
     check(bool(hits), f"profiler recorded no launch of {kernel} in {reps}")
     return (sum(e.device_time_total for e in hits)
             / sum(e.count for e in hits) / 1e3)
+
+
+def device_total_ms(fn, reps: int = 3) -> float:
+    """Device time (ms) of one call of fn: every kernel and copy that
+    torch.profiler records over reps calls, summed, over reps."""
+    total = sum(e.device_time_total for e in device_events(fn, reps))
+    check(total > 0, "the profiler recorded no device time")
+    return total / reps / 1e3
 
 
 def sw_bound(qc, rc, ql, rl, n_ops):
@@ -411,21 +435,6 @@ def probe_phase(device, card: str):
 # ---------------------------------------------------------------------------
 
 
-def fasta(prefix: str, queries) -> str:
-    return "".join(f">{prefix}{i} smoke query\n{q}\n"
-                   for i, q in enumerate(queries))
-
-
-def post(url: str, fields: dict):
-    data = urllib.parse.urlencode(fields).encode()
-    t0 = time.perf_counter()
-    with urllib.request.urlopen(urllib.request.Request(url, data=data),
-                                timeout=600) as resp:
-        body = resp.read()
-        status = resp.status
-    return status, body, time.perf_counter() - t0
-
-
 def host_kmers(seq: str) -> np.ndarray:
     """7-mer codes of a sequence (the reference's EncodeKmer layout:
     three 9-bit residue pairs, then one 5-bit residue), in numpy."""
@@ -476,7 +485,7 @@ def reference_topk(art, seq: str, k: int):
 
 
 def check_counts(engine, art, queries, rng, n: int) -> int:
-    pick = rng.choice(len(queries), size=n, replace=False)
+    pick = rng.choice(len(queries), size=min(n, len(queries)), replace=False)
     seqs = [queries[i] for i in pick]
     got = engine.count_batch(seqs, [len(s) - 6 for s in seqs], k=10)
     for s, qc in zip(seqs, got):
@@ -487,16 +496,33 @@ def check_counts(engine, art, queries, rng, n: int) -> int:
               and (qc.counts == counts).all(),
               f"top-k of {s[:20]}...: engine {qc.hit_rows}, {qc.counts}; "
               f"reference {rows}, {counts}")
-    return n
+    return len(seqs)
+
+
+def plain_alignments(art, pairs, device):
+    """result_from_ops of the plain SW versions on the card for (query,
+    subject) pairs, 'U' read as '*' as the aligner reads it."""
+    from kaamer_tpu_torch.ops import swalign as sw
+    from kaamer_tpu_torch.ops import swalign_cuda as swc
+
+    pairs = [(q.replace("U", "*"), r.replace("U", "*")) for q, r in pairs]
+    qc_, rc_, ql, rl, mat = pair_tensors(pairs, device)
+    dirs, best = swc.sw_wavefront_plain(qc_, rc_, ql, rl, mat, 11, 1)
+    score, q_ops, r_ops, n_ops = (t.cpu().numpy() for t in
+                                  swc.sw_traceback_plain(dirs, best, ql))
+    scores = sw.get_matrix_scores("blosum62", 11, 1)
+    out = []
+    for b, (q, r) in enumerate(pairs):
+        k = int(n_ops[b]) if score[b] > 0 else 0
+        out.append(sw.result_from_ops(q, r, scores, q_ops[b, :k].tolist(),
+                                      r_ops[b, :k].tolist(), art.stats))
+    return out
 
 
 def check_alignments(engine, art, queries, body: bytes, rng, n: int,
                      device) -> int:
     """Served R2 rows vs result_from_ops of the plain SW versions on the
     card, for n sampled (query, subject) rows."""
-    from kaamer_tpu_torch.ops import swalign as sw
-    from kaamer_tpu_torch.ops import swalign_cuda as swc
-
     rows = [ln.split("\t") for ln in body.decode().splitlines()[1:]]
     rows = [rows[i] for i in rng.choice(len(rows), size=min(n, len(rows)),
                                         replace=False)]
@@ -508,17 +534,8 @@ def check_alignments(engine, art, queries, body: bytes, rng, n: int,
                                  [len(qseq[nm]) - 6 for nm in names], k=10):
         for row in qc.hit_rows.tolist():
             entry_row[art.entry_id(row)] = row
-    pairs = [(qseq[r[0]].replace("U", "*"),
-              art.sequence(entry_row[r[1]]).replace("U", "*")) for r in rows]
-    qc_, rc_, ql, rl, mat = pair_tensors(pairs, device)
-    dirs, best = swc.sw_wavefront_plain(qc_, rc_, ql, rl, mat, 11, 1)
-    score, q_ops, r_ops, n_ops = (t.cpu().numpy() for t in
-                                  swc.sw_traceback_plain(dirs, best, ql))
-    scores = sw.get_matrix_scores("blosum62", 11, 1)
-    for b, ((q, r), row) in enumerate(zip(pairs, rows)):
-        k = int(n_ops[b]) if score[b] > 0 else 0
-        a = sw.result_from_ops(q, r, scores, q_ops[b, :k].tolist(),
-                               r_ops[b, :k].tolist(), art.stats)
+    pairs = [(qseq[r[0]], art.sequence(entry_row[r[1]])) for r in rows]
+    for row, a in zip(rows, plain_alignments(art, pairs, device)):
         want = [f"{a.Identity:.2f}", str(a.Length), str(a.Mismatches),
                 str(a.GapOpenings), str(a.QueryStart), str(a.QueryEnd),
                 str(a.SubjectStart), str(a.SubjectEnd), f"{a.EValue:e}",
@@ -527,93 +544,310 @@ def check_alignments(engine, art, queries, body: bytes, rng, n: int,
     return len(rows)
 
 
-class Served:
-    """The port's HTTP server for one engine, on a free local port, for the
-    duration of a with block (which yields the protein search URL)."""
-
-    def __init__(self, engine):
-        from kaamer_tpu_torch.server.app import make_server
-
-        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-        self.httpd = make_server(engine, 0, tmp, host="127.0.0.1")
-
-    def __enter__(self):
-        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
-        return (f"http://127.0.0.1:{self.httpd.server_address[1]}"
-                "/api/search/protein")
-
-    def __exit__(self, *exc):
-        self.httpd.shutdown()
-        self.httpd.server_close()
+def json_hits(body: bytes):
+    """(ORF key (name, plus strand, end position), result, hit) of every
+    hit of a translated JSON answer."""
+    out = []
+    for r in json.loads(body)["results"]:
+        q = r["Query"]
+        key = (q["Name"].split(" ", 1)[0], q["Location"]["PlusStrand"],
+               q["Location"]["EndPosition"])
+        out += [(key, r, h) for h in r["SearchResults"]["Hits"]]
+    return out
 
 
-def serve_phase(engine, art, queries, rng, device, card: str):
-    """R1-R3 through the port's HTTP server, each with the launch counts
-    set to 0 just before it and read just after, then the on-card checks.
-    Returns the kernels' launch counts summed over R1-R3 and the response
-    bodies."""
+def check_json_alignments(art, body: bytes, rng, n: int, device) -> int:
+    """Sampled hits of a translated JSON answer with -aln: each served
+    Alignment equals result_from_ops of the plain SW versions on the card
+    over the served ORF sequence and the subject."""
+    hits = json_hits(body)
+    pick = rng.choice(len(hits), size=min(n, len(hits)), replace=False)
+    hits = [hits[i] for i in pick]
+    pairs = [(r["Query"]["Sequence"], r["HitEntries"][str(h["Key"])]["Sequence"])
+             for _, r, h in hits]
+    for (_, _, h), a in zip(hits, plain_alignments(art, pairs, device)):
+        check(h["Alignment"] == a.to_json_obj(),
+              f"served {h['Alignment']}, plain SW {a.to_json_obj()}")
+    return len(hits)
+
+
+def records(text: str, fastq: bool):
+    """(name, sequence) of each record of a FASTA or FASTQ text."""
+    lines = text.splitlines()
+    step = 4 if fastq else 2
+    return [(lines[i][1:].split(" ", 1)[0], lines[i + 1])
+            for i in range(0, len(lines), step)]
+
+
+def orf_index(recs, gcode: int) -> dict:
+    """(name, plus strand, end position) -> (ORF protein sequence, k-mer
+    count) of every ORF translated search dispatches for these records."""
+    from kaamer_tpu_torch.search.orf import get_orf_tuples_batch
+
+    out = {}
+    for (name, _), orfs in zip(recs, get_orf_tuples_batch(
+            [s for _, s in recs], gcode, min_kmers=1)):
+        for seq, n, _, ep, plus, _ in orfs:
+            out[(name, plus, ep)] = (seq, n)
+    return out
+
+
+def check_translated_counts(art, index: dict, served, label, rng,
+                            n: int) -> int:
+    """n sampled served translated hits (ORF key, subject, KMatch): the
+    subject is among reference_topk's top 16 over the ORF's searched
+    k-mers, with the served count.  label maps a DB row to the subject as
+    served (entry id or key)."""
+    pick = rng.choice(len(served), size=min(n, len(served)), replace=False)
+    by_orf = {}
+    for i in pick:
+        key, subject, km = served[i]
+        by_orf.setdefault(key, []).append((subject, km))
+    for key, hits in by_orf.items():
+        seq, nk = index[key]
+        rows, counts = reference_topk(art, seq[:nk + KMER_SIZE - 1], 16)
+        ref = {label(int(r)): int(c) for r, c in zip(rows, counts)}
+        for subject, km in hits:
+            check(ref.get(subject) == km, f"{key} {subject}: served {km}, "
+                  f"reference {ref.get(subject)}")
+    return len(pick)
+
+
+def check_bitmaps(engine, seqs, sizes) -> tuple:
+    """count_batch with positions=True: every query served with device
+    bitmaps has, for every hit, the bitmap of the host binary search
+    (member_np).  Returns (queries with device bitmaps, queries, hits
+    compared)."""
+    got = engine.count_batch(seqs, sizes, k=10, positions=True)
+    n_dev = n_hits = 0
+    for qc in got:
+        if qc._bitmaps is None:
+            continue
+        n_dev += 1
+        rows = [int(r) for r in qc.hit_rows]
+        dev = engine.position_bitmaps_np(qc, rows)
+        host = engine._host_bitmaps_np(qc, rows)
+        check(dev.keys() == host.keys()
+              and all(np.array_equal(dev[r], host[r]) for r in rows),
+              f"device bitmaps != member_np for hits {rows}")
+        n_hits += len(rows)
+    return n_dev, len(got), n_hits
+
+
+def gate_off(fn):
+    """fn() with the engine's bitmap gate (_positions_on_device) forced
+    off, so every bitmap comes from the host binary search."""
+    from kaamer_tpu_torch.search import engine as engine_mod
+
+    saved = engine_mod._positions_on_device
+    engine_mod._positions_on_device = lambda *a: False
+    try:
+        return fn()
+    finally:
+        engine_mod._positions_on_device = saved
+
+
+def count_hits(name: str, body: bytes, fields: dict) -> int:
+    if fields.get("output-format") == "json":
+        results = json.loads(body)["results"]
+        check(any(r["SearchResults"]["PositionHits"] for r in results),
+              f"{name}: no position hits")
+        return sum(len(r["SearchResults"]["Hits"]) for r in results)
+    return body.count(b"\n") - 1
+
+
+def serve_phase(engine, reqs, card: str):
+    """R1-R5 through the port's HTTP server, each twice (the second is the
+    warm wall), each with the launch counts set to 0 just before it and
+    read just after.  Returns the kernels' launch counts summed over the
+    first pass of R1-R5, and the response bodies."""
     from kaamer_tpu_torch.ops import swalign as sw
     from kaamer_tpu_torch.ops import swalign_cuda as swc
 
-    requests = (
-        ("R1", 2048, {}),
-        ("R2", 256, {"align": "true"}),
-        ("R3", 64, {"output-format": "json", "positions": "true"}),
-    )
     bodies = {}
     launches = {name: 0 for name, _ in KERNELS}
     per_request = {}
     with Served(engine) as url:
         host_before = sw.HOST_DP_PAIRS
-        for name, n, extra in requests:
-            fields = {"type": "string",
-                      "sequence": fasta("r_", queries[:n]), **extra}
-            swc.reset_launches()
-            status, body, wall = post(url, fields)
-            per_request[name] = dict(swc.launches)
-            for k, v in swc.launches.items():
-                launches[k] += v
-            bodies[name] = body
-            check(status == 200, f"{name}: HTTP {status}")
-            if extra.get("output-format") == "json":
-                results = json.loads(body)["results"]
-                n_hits = sum(len(r["SearchResults"]["Hits"]) for r in results)
-                check(any(r["SearchResults"]["PositionHits"] for r in results),
-                      f"{name}: no position hits")
-            else:
-                n_hits = body.count(b"\n") - 1
+        for name, route, fields, unit in reqs:
+            n = fields["sequence"].count("\n") // (4 if route == "fastq"
+                                                   else 2)
+            walls = []
+            for rep in range(2):
+                swc.reset_launches()
+                status, body, wall = post(url + route,
+                                          {"type": "string", **fields})
+                check(status == 200, f"{name}: HTTP {status}")
+                walls.append(wall)
+                if rep == 0:
+                    per_request[name] = dict(swc.launches)
+                    for k, v in swc.launches.items():
+                        launches[k] += v
+                    bodies[name] = body
+                check(body == bodies[name], f"{name}: the warm answer's bytes "
+                      "differ from the first")
+            n_hits = count_hits(name, body, fields)
             check(n_hits > 0, f"{name}: no hits")
-            print(f"{name}: {n} queries {extra or 'TSV defaults'} -> {status}, "
-                  f"{n_hits} hits, {len(body)} bytes, wall {wall} s, "
-                  f"{n / wall} queries/s [{card}]")
-    print(f"main-path kernel launches per request: {per_request}; host-DP "
-          f"pairs (routing rule): {sw.HOST_DP_PAIRS - host_before}")
-    check(per_request["R2"]["sw_align"] > 0, "R2 never launched sw_align")
+            opts = {k: v for k, v in fields.items() if k != "sequence"}
+            print(f"{name}: {n} {unit} via /api/search/{route} "
+                  f"{opts or 'TSV defaults'} -> {status}, {n_hits} hits, {len(body)} bytes, wall "
+                  f"{walls[0]} s, warm {walls[1]} s ({n / walls[1]} {unit}/s "
+                  f"warm) [{card}]")
+    print(f"main-path kernel launches per request (first pass): "
+          f"{per_request}; host-DP pairs (routing rule): "
+          f"{sw.HOST_DP_PAIRS - host_before}")
+    for name in ("R2", "R5"):
+        check(per_request[name]["sw_align"] > 0,
+              f"{name} never launched sw_align")
+    return launches, bodies
+
+
+def sync_phase(engine, queries) -> None:
+    """dispatch_batch and align_batch_dispatch under sync debug mode
+    "error" (a synchronizing call raises), then schedule_batch under
+    "warn": it must wait for the card exactly once, for the totals, on a
+    batch with no query past CAP_MAX."""
+    import warnings
+
+    import torch
+
+    from kaamer_tpu_torch.ops import swalign as sw
+
+    seqs = queries[:256]
+    sizes = [len(s) - 6 for s in seqs]
+    pairs = list(zip(queries[0:64:2], queries[1:64:2]))
+    for positions in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handle = engine.dispatch_batch(seqs, sizes, k=10,
+                                           positions=positions)
+            aln = sw.align_batch_dispatch(pairs, engine.art.stats,
+                                          "blosum62", 11, 1,
+                                          device=engine.device)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(aln[3] is not None, "align_batch_dispatch did not enqueue")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                sched = engine.schedule_batch(handle)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(w.message) for w in caught
+                 if "synchronizing CUDA operation" in str(w.message)]
+        check(not sched[1], "a query of the batch went past CAP_MAX")
+        check(len(syncs) == 1, f"schedule_batch waited for the card "
+              f"{len(syncs)} times, not once: {syncs}")
+        got = engine.collect_batch(sched)
+        # with positions, the gate (_positions_on_device) decides per chunk
+        n_dev = sum(qc._bitmaps is not None for qc in got)
+        check(positions or n_dev == 0, f"{n_dev} queries with device "
+              "bitmaps, none asked for")
+        check(len(sw.align_batch_resolve(aln)) == len(pairs),
+              "align_batch_resolve lost pairs")
+        print(f"sync proof (positions={positions}): dispatch_batch of "
+              f"{len(seqs)} queries and align_batch_dispatch of {len(pairs)}"
+              f" pairs under sync debug mode 'error' raised nothing; "
+              f"schedule_batch made {len(syncs)} synchronizing call (the "
+              f"totals read); {n_dev} of {len(got)} queries on device "
+              f"bitmaps")
+
+
+def positions_profile(engine, queries, card: str) -> None:
+    """The positions branch's device time: one count_batch of R3's 64 and
+    R1's 2048 queries with and without position bitmaps, all device
+    activity summed (torch.profiler)."""
+    for n in (64, 2048):
+        seqs = queries[:n]
+        sizes = [len(s) - 6 for s in seqs]
+        ms = {pos: device_total_ms(lambda: engine.count_batch(
+            seqs, sizes, k=10, positions=pos)) for pos in (False, True)}
+        print(f"positions branch, {n} queries: device {ms[True]} ms with "
+              f"bitmaps, {ms[False]} ms without, {ms[True] - ms[False]} ms "
+              f"for the bitmaps (torch.profiler, mean of 3) [{card}]")
+
+
+def check_phase(engine, art, queries, reqs, bodies, rng, device):
+    """The on-card checks of the served answers."""
+    from kaamer_tpu_torch.server.app import _default_options
+    from kaamer_tpu_torch.search.options import NUCLEOTIDE
 
     n = check_counts(engine, art, queries, rng, 256)
     print(f"R1 check: {n} sampled queries' top-k rows and counts == numpy "
           f"bincount reference")
     n = check_alignments(engine, art, queries, bodies["R2"], rng, 256, device)
     print(f"R2 check: {n} sampled alignments == plain SW on the card")
-    return launches, bodies
+
+    gcode = _default_options(NUCLEOTIDE).GeneticCode
+    fields = {name: f for name, _, f, _ in reqs}
+    routes = {name: route for name, route, _, _ in reqs}
+    reads = records(fields["R4"]["sequence"], fastq=True)
+    contigs = records(fields["R5"]["sequence"], fastq=False)
+    idx4, idx5 = orf_index(reads, gcode), orf_index(contigs, gcode)
+
+    seqs = queries[:64]
+    n_dev, n_q, n_hits = check_bitmaps(engine, seqs,
+                                       [len(s) - 6 for s in seqs])
+    check(n_dev > 0, "R3: no query got device bitmaps")
+    print(f"R3 bitmaps: {n_dev} of {n_q} queries on device bitmaps, "
+          f"{n_hits} hits' bitmaps == member_np")
+    orfs = list(idx5.values())
+    pick = rng.choice(len(orfs), size=min(256, len(orfs)), replace=False)
+    n_dev, n_q, n_hits = check_bitmaps(engine, [orfs[i][0] for i in pick],
+                                       [orfs[i][1] for i in pick])
+    check(n_dev > 0, "R5: no ORF got device bitmaps")
+    print(f"R5 bitmaps: {n_dev} of {n_q} sampled ORFs on device bitmaps, "
+          f"{n_hits} hits' bitmaps == member_np")
+
+    with Served(engine) as url:
+        for name in ("R3", "R5"):
+            status, body, wall = gate_off(lambda: post(
+                url + routes[name], {"type": "string", **fields[name]}))
+            check(status == 200 and body == bodies[name],
+                  f"{name}: host-bitmap bytes != device-bitmap bytes")
+            print(f"{name} with the bitmap gate off (host bitmaps): bytes == "
+                  f"device-bitmap bytes, wall {wall} s")
+
+    served4 = []
+    for ln in bodies["R4"].decode().splitlines()[1:]:
+        c = ln.split("\t")
+        sp, ep = int(c[6]), int(c[7])
+        served4.append(((c[0], sp < ep, ep), c[1], int(c[4])))
+    n = check_translated_counts(art, idx4, served4, art.entry_id, rng, 256)
+    print(f"R4 check: {n} sampled served hits' KMatch == numpy bincount "
+          f"reference over the read's ORF")
+    keys = np.asarray(art.protein_ids)
+    served5 = [(key, h["Key"], h["Kmatch"])
+               for key, _, h in json_hits(bodies["R5"])]
+    n = check_translated_counts(art, idx5, served5,
+                                lambda r: int(keys[r]), rng, 256)
+    print(f"R5 check: {n} sampled served hits' KMatch == numpy bincount "
+          f"reference over the contig's ORF")
+    n = check_json_alignments(art, bodies["R5"], rng, 256, device)
+    print(f"R5 check: {n} sampled alignments == plain SW on the card")
 
 
-def cold_pass(art, device, queries, r1_body: bytes, card: str) -> None:
-    """R1 again from SearchEngine(art, device, hot=False): both engines
-    are exact, so the response bytes must be equal."""
+def cold_pass(art, device, reqs, bodies, card: str) -> None:
+    """R1, R3, R4 and R5 again from SearchEngine(art, device, hot=False):
+    both engines are exact, so the response bytes must be equal."""
     from kaamer_tpu_torch.search.engine import SearchEngine
 
     cold = SearchEngine(art, device, hot=False)
     check(cold.hot_starts is None, "the cold engine holds hot sets")
     with Served(cold) as url:
-        status, body, wall = post(url, {"type": "string",
-                                        "sequence": fasta("r_", queries)})
-    check(status == 200, f"cold R1: HTTP {status}")
-    print(f"cold R1 (hot=False): {len(queries)} queries, {len(body)} bytes, "
-          f"wall {wall} s, {len(queries) / wall} queries/s, chunks "
-          f"{cold.stats} [{card}]")
-    check(body == r1_body, "cold R1 bytes != hot R1 bytes")
-    print("cold R1 bytes == hot R1 bytes")
+        for name, route, fields, unit in reqs:
+            if name == "R2":
+                continue
+            status, body, wall = post(url + route,
+                                      {"type": "string", **fields})
+            check(status == 200, f"cold {name}: HTTP {status}")
+            check(body == bodies[name], f"cold {name} bytes != hot {name} "
+                  "bytes")
+            print(f"cold {name} (hot=False): {len(body)} bytes == hot, wall "
+                  f"{wall} s [{card}]")
+    print(f"cold engine chunks over R1, R3-R5: {cold.stats}")
 
 
 # ---------------------------------------------------------------------------
@@ -632,24 +866,28 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this run needs one card",
               file=sys.stderr)
         return 1
+    from kaamer_tpu_torch import native
     from kaamer_tpu_torch.bench import data
     from kaamer_tpu_torch.ops import _kernels
     from kaamer_tpu_torch.search.engine import SearchEngine
 
     device = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)}")
     print(smi)
+    phases = {}
+    t_run = t0 = time.perf_counter()
 
-    t0 = time.perf_counter()
+    def phase(name: str) -> None:
+        nonlocal t0
+        phases[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phases[name]} s")
+        t0 = time.perf_counter()
+
     _kernels.lib()
-    print(f"kernels built and loaded in {time.perf_counter() - t0} s "
-          f"({_kernels.LIB_PATH})")
+    print(f"kernels built and loaded ({_kernels.LIB_PATH})")
     # ptxas -v: one line per kernel with its registers and spills
     for ln in _kernels.build_log.splitlines():
         if "Compiling entry function" in ln:
@@ -657,43 +895,61 @@ def main() -> int:
         elif "spill stores" in ln or "Used" in ln and "registers" in ln:
             print(ln.split(":", 1)[-1].strip(), end="; " if "spill" in ln
                   else "\n")
+    phase("build")
 
     probe_rows = probe_phase(device, card)
+    phase("probe")
     rng = np.random.default_rng(2026)
     kern = kernel_phase(device, rng, 512, 2048, min(8, os.cpu_count() or 1),
                         card)
+    phase("kernel")
 
-    t0 = time.perf_counter()
     os.makedirs(data.CACHE_ROOT, exist_ok=True)
     path = os.path.join(data.CACHE_ROOT, f"skew_{args.proteins}")
     art = data.ensure_db(path, data.build_skewed_db, args.proteins, 77)
     print(f"database: {art.num_proteins} proteins, {len(art.postings)} "
-          f"postings, ready in {time.perf_counter() - t0} s")
-    t0 = time.perf_counter()
+          f"postings; native host library: {native.available()}")
+    phase("database")
     engine = SearchEngine(art, device)
     torch.cuda.synchronize(device)
     check(engine.hot_starts is not None, "the served engine has no hot sets")
-    print(f"engine on {device} in {time.perf_counter() - t0} s, "
-          f"{torch.cuda.memory_allocated(device)} bytes resident; "
-          f"{engine.hot_starts.shape[0]} hot sets (len >= "
-          f"{engine.hot_thresh}), M {tuple(engine.M.shape)} "
-          f"{engine.M.dtype} {engine.M.numel() * engine.M.element_size()} "
-          f"bytes")
+    print(f"engine on {device}: {torch.cuda.memory_allocated(device)} bytes "
+          f"resident; {engine.hot_starts.shape[0]} hot sets (len >= "
+          f"{engine.hot_thresh}), M {tuple(engine.M.shape)} {engine.M.dtype} "
+          f"{engine.M.numel() * engine.M.element_size()} bytes, MT "
+          f"{tuple(engine.MT.shape)} {engine.MT.dtype} "
+          f"{engine.MT.numel() * engine.MT.element_size()} bytes")
+    phase("engine")
 
-    queries = data.make_queries(art, rng, 2048)
+    queries, reqs = smoke_requests(art, np.random.default_rng(2026))
     for key in engine.stats:
         engine.stats[key] = 0
-    launches, bodies = serve_phase(engine, art, queries, rng, device, card)
-    print(f"hot engine over R1-R3 and the checks: chunks hot "
+    launches, bodies = serve_phase(engine, reqs, card)
+    print(f"hot engine over R1-R5 (two passes): chunks hot "
           f"{engine.stats['hot']}, cold {engine.stats['cold']}, legacy "
           f"{engine.stats['legacy']}; certificate re-run rows "
           f"{engine.stats['rerun_rows']}")
     check(engine.stats["hot"] > 0, "no hot chunk was served")
+    phase("serve")
+
+    sync_phase(engine, queries)
+    phase("sync")
+    check_phase(engine, art, queries, reqs, bodies, rng, device)
+    phase("checks")
+    positions_profile(engine, queries, card)
+    phase("profile")
+    print(f"peak device memory with the hot engine: "
+          f"{torch.cuda.max_memory_allocated(device)} bytes [{card}]")
     del engine
-    cold_pass(art, device, queries, bodies["R1"], card)
+    cold_pass(art, device, reqs, bodies, card)
+    phase("cold")
+    print(f"peak device memory over the run: "
+          f"{torch.cuda.max_memory_allocated(device)} bytes [{card}]")
     imported = [m for m in sys.modules
                 if m.split(".")[0] in ("jax", "kaamer_tpu", "bench")]
     check(not imported, f"the port imported {imported}")
+    print(f"phases (s): {json.dumps(phases)}; total "
+          f"{time.perf_counter() - t_run} s")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

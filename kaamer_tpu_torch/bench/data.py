@@ -1,7 +1,9 @@
 """The skewed benchmark database and its queries (the root bench.py's
 build_skewed_db, make_queries and ensure_db, copied unchanged onto the
 port's own build_db and load_db): the same seed builds the same artifact,
-byte for byte, so H100 runs stay comparable across PRs.
+byte for byte, so H100 runs stay comparable across PRs.  Translated
+queries (FASTQ reads, nucleotide contigs) are reverse-translated with
+bench.py's codon table.
 
 Databases are domain-skewed synthetics: proteins share power-law-popular
 "domains", so k-mer postings lists have the heavy-tailed family structure
@@ -18,6 +20,7 @@ import numpy as np
 
 from ..index.artifact import load_db
 from ..index.build import build_db
+from ..search.orf import reverse_complement
 
 N_QUERIES = 16_384
 QUERY_LEN = 250  # uniform bucket so every batch hits one compiled shape
@@ -90,6 +93,55 @@ def make_queries(art, rng, n_queries: int = N_QUERIES) -> list:
             s[p] = aa[int(rng.integers(0, 20))]
         queries.append("".join(s))
     return queries
+
+
+# one codon per amino acid (table 11) for reverse-translating translated
+# queries (bench.py:211-216)
+_AA2CODON = {
+    "A": "gct", "C": "tgt", "D": "gat", "E": "gaa", "F": "ttt", "G": "ggt",
+    "H": "cat", "I": "att", "K": "aaa", "L": "ctt", "M": "atg", "N": "aat",
+    "P": "cct", "Q": "caa", "R": "cgt", "S": "tct", "T": "act", "V": "gtt",
+    "W": "tgg", "Y": "tat",
+}
+
+
+def reverse_translate(prot: str) -> str:
+    return "".join(_AA2CODON.get(a, "gct") for a in prot)
+
+
+def make_reads_fastq(art, rng, n_reads: int = 8_192,
+                     frag_len: int = 50) -> str:
+    """FASTQ reads as bench.py:bench_fastq writes them (bench.py:219-234):
+    each a frag_len-residue fragment of a random database protein,
+    reverse-translated and flanked by taa stops."""
+    out = []
+    for i in range(n_reads):
+        seq = art.sequence(int(rng.integers(0, art.num_proteins)))
+        start = int(rng.integers(0, max(len(seq) - frag_len, 1)))
+        dna = "taa" + reverse_translate(seq[start:start + frag_len]) + "taa"
+        out.append(f"@r{i}\n{dna}\n+\n{'I' * len(dna)}\n")
+    return "".join(out)
+
+
+def make_contigs_fasta(art, rng, n_contigs: int = 64,
+                       genes: int = 4) -> str:
+    """Contigs of `genes` genes each: atg, a reverse-translated
+    make_queries query (QUERY_LEN residues) and a taa stop; genes 2 and 4
+    of a contig sit on the minus strand, and genes are separated (and
+    flanked) by 30-90 nt of random DNA."""
+    prots = make_queries(art, rng, n_contigs * genes)
+    out = []
+    for c in range(n_contigs):
+        parts = []
+        for g in range(genes):
+            parts.append("".join(rng.choice(list("acgt"),
+                                            size=int(rng.integers(30, 91)))))
+            gene = "atg" + reverse_translate(prots[c * genes + g]) + "taa"
+            parts.append(reverse_complement(gene) if g % 2 else gene)
+        parts.append("".join(rng.choice(list("acgt"),
+                                        size=int(rng.integers(30, 91)))))
+        out.append(f">contig{c} smoke contig\n{''.join(parts)}\n")
+    return "".join(out)
 
 
 def ensure_db(path: str, builder, *args):

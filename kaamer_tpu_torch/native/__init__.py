@@ -5,8 +5,9 @@ The shared library is compiled with g++ at first use (no Python headers
 required) into kaamer_tpu_torch/build/, not beside the source.  Every
 entry point has a pure numpy fallback, so the package works without a
 toolchain; `available()` reports which path is active.  The port binds
-the entry points its protein path uses: pair extraction and the sort of
-the database build, and the query wire packer.
+the entry points its paths use: pair extraction and the sort of the
+database build, the query wire packer, and the six-frame ORF scan of
+translated search.
 """
 
 from __future__ import annotations
@@ -54,6 +55,16 @@ def _load():
             lib.kt_pack_queries.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+            ]
+            lib.kt_get_orfs.restype = ctypes.c_int64
+            lib.kt_get_orfs.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # dna
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # tables
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,  # seq out
+                ctypes.c_void_p,                                   # meta
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,  # alts out
+                ctypes.c_int64,                                    # max_orfs
+                ctypes.c_int,                                      # n_threads
             ]
             _lib = lib
         except (OSError, subprocess.CalledProcessError):
@@ -133,3 +144,47 @@ def sort_u64(arr: np.ndarray) -> np.ndarray:
     default; kt_sort_u64 remains exported for reuse."""
     arr.sort()
     return arr
+
+
+def get_orfs_raw(dna_buf: np.ndarray, dna_off: np.ndarray,
+                 aa: np.ndarray, start: np.ndarray, stop: np.ndarray,
+                 n_threads: int = 0):
+    """Six-frame ORF scan over concatenated DNA sequences (kt_get_orfs),
+    multithreaded over contiguous sequence slices (bit-identical to the
+    Python scan of search/orf.py; tests/test_torch_translated.py holds
+    both against the JAX package's).
+
+    dna_buf: uint8[total]; dna_off: int64[n+1]; aa/start/stop: the 65-entry
+    tables from gcode.translation_arrays.  Returns (seq_buf, seq_off, meta,
+    alts_buf, alts_off) flat arrays trimmed to the ORF count, or None when
+    the native library is unavailable.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    total = int(dna_off[-1])
+    n_seqs = dna_off.shape[0] - 1
+    # 6 frames hold <= 2*total aa + per-frame '*' slack
+    seq_cap = 2 * total + 12 * n_seqs + 64
+    alts_cap = total + 6 * n_seqs + 64
+    max_orfs = 2 * total // (3 * 21) + 6 * n_seqs + 64
+    dna_buf = np.ascontiguousarray(dna_buf)
+    dna_off = np.ascontiguousarray(dna_off.astype(np.int64))
+    aa_c = np.ascontiguousarray(aa.astype(np.uint8))
+    start_c = np.ascontiguousarray(start.astype(np.uint8))
+    stop_c = np.ascontiguousarray(stop.astype(np.uint8))
+    seq_buf = np.empty(seq_cap, dtype=np.uint8)
+    seq_off = np.zeros(max_orfs + 1, dtype=np.int64)
+    meta = np.empty((max_orfs, 4), dtype=np.int32)
+    alts_buf = np.empty(alts_cap, dtype=np.int32)
+    alts_off = np.zeros(max_orfs + 1, dtype=np.int64)
+    n = lib.kt_get_orfs(
+        dna_buf.ctypes.data, dna_off.ctypes.data, n_seqs,
+        aa_c.ctypes.data, start_c.ctypes.data, stop_c.ctypes.data,
+        seq_buf.ctypes.data, seq_cap, seq_off.ctypes.data,
+        meta.ctypes.data,
+        alts_buf.ctypes.data, alts_cap, alts_off.ctypes.data,
+        max_orfs, n_threads or _threads(),
+    )
+    assert n >= 0, "kt_get_orfs capacity overflow (bounds are analytic)"
+    return (seq_buf, seq_off[: n + 1], meta[:n], alts_buf, alts_off[: n + 1])

@@ -183,6 +183,58 @@ def count_topk(rows: torch.Tensor, k: int, weights=None):
     return top_counts, hit_rows
 
 
+def expand_run_bitmaps(found_u: torch.Tensor,
+                       run_start: torch.Tensor) -> torch.Tensor:
+    """Broadcast per-run position bitmaps to every position of the run
+    (count.py:expand_run_bitmaps).  found_u: bool[B, K, L] with bits only
+    at run-start lanes; run_start: int64[B, L].  The running max of
+    2 * run_start + bit keeps the run head's bit along the run and resets
+    at the next run, whose run_start is larger."""
+    t = run_start[:, None, :] * 2 + found_u.to(run_start.dtype)
+    return (torch.cummax(t, dim=2).values & 1).bool()
+
+
+def member_bitmap_from_rows(rows: torch.Tensor, seg: torch.Tensor,
+                            hits: torch.Tensor, L: int) -> torch.Tensor:
+    """Position bitmaps from the expanded postings
+    (count.py:member_bitmap_from_rows): bitmap[b, k, l] is True iff some
+    expanded entry of query b has row hits[b, k] and lane seg == l.
+
+    rows int64[B, cap] (ROW_SENTINEL padding), seg int64[B, cap] run-start
+    lane of each entry, hits int64[B, K].  The JAX function is a bf16
+    einsum over [B, cap, K] x [B, cap, L] indicators, B * cap * K * L
+    multiply-adds for at most B * cap set bits; here each entry finds its
+    hit by a binary search in the row's sorted hits and adds one at (hit,
+    seg), a scatter of B * cap entries.  Equal hits (only the sentinel
+    repeats in a top-k) all get the bits of the first, as in the einsum,
+    so the result is the same bool tensor on every input."""
+    B, K = hits.shape
+    hs, order = torch.sort(hits, dim=1, stable=True)
+    pos = torch.searchsorted(hs, rows.contiguous()).clamp(max=K - 1)
+    match = (hs.gather(1, pos) == rows) & (seg >= 0) & (seg < L)
+    acc = torch.zeros((B, K * L), dtype=torch.int32, device=rows.device)
+    acc.scatter_add_(1, pos * L + seg.clamp(0, L - 1), match.to(torch.int32))
+    found = acc.view(B, K, L) > 0
+    # a repeated hit value takes the bits of its first (sorted) copy
+    k = torch.arange(K, device=rows.device)[None, :]
+    first = torch.cat([torch.ones_like(hs[:, :1], dtype=torch.bool),
+                       hs[:, 1:] != hs[:, :-1]], dim=1)
+    head = torch.cummax(torch.where(first, k, 0), dim=1).values
+    found = found.gather(1, head[:, :, None].expand(B, K, L))
+    # back to the caller's hit order
+    return torch.empty_like(found).scatter_(
+        1, order[:, :, None].expand(B, K, L), found)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """bool[..., L] -> uint8[..., L // 8], little-endian, 8 positions a
+    byte (count.py:pack_bits; L % 8 == 0); the host inverse is
+    np.unpackbits(..., bitorder="little")."""
+    shaped = bits.reshape(bits.shape[:-1] + (bits.shape[-1] // 8, 8))
+    w = 1 << torch.arange(8, device=bits.device, dtype=torch.int32)
+    return (shaped.to(torch.int32) * w).sum(dim=-1).to(torch.uint8)
+
+
 def member_np(postings: np.ndarray, offs: np.ndarray, lens: np.ndarray,
               hits: np.ndarray) -> np.ndarray:
     """Host position bitmaps for one query (a copy of

@@ -314,3 +314,36 @@ def merge_hot_cold_tam(counts_hot, rows, w, k: int, pack_w_bits: int = 0,
     exact = ((tau > bound) | (bound <= 0)
              | ((tau == bound) & (tau > 0) & (rho <= R)))
     return top_counts, hit_rows, exact
+
+
+def hot_lane_mask(whot: torch.Tensor, run_start: torch.Tensor) -> torch.Tensor:
+    """bool[G, L]: lanes of a hot run (hotset.py:hot_lane_mask), the
+    run-start mask whot > 0 forward-filled along each run by the running
+    max of 2 * run_start + bit (count.py:expand_run_bitmaps)."""
+    t = run_start * 2 + (whot > 0).to(run_start.dtype)
+    return (torch.cummax(t, dim=1).values & 1).bool()
+
+
+def hot_position_bitmaps(offs: torch.Tensor, hot_lanes: torch.Tensor,
+                         hot_starts: torch.Tensor, MT: torch.Tensor,
+                         hits: torch.Tensor) -> torch.Tensor:
+    """bool[G, K, L]: which query positions sit in a hot run whose set
+    holds each top hit (hotset.py:hot_position_bitmaps, the hot half of
+    the position bitmaps).
+
+    offs int64[G, L] slice starts, hot_lanes bool[G, L], hot_starts
+    int64[H] strictly increasing, MT bf16[P_pad, H] the transposed
+    membership, hits int64[G, K] (ROW_SENTINEL rows are clamped to
+    P_pad - 1; the caller masks them).  The JAX function takes an einsum
+    of the [G, L, H] one-hot of each lane's hot set with M's columns at
+    the hits; a lane matches at most one hot set, so here that set's
+    index is found by a binary search and M's entry gathered directly."""
+    G, L = offs.shape
+    P, H = MT.shape
+    K = hits.shape[1]
+    mcols = MT[hits.clamp(max=P - 1)]                      # [G, K, H]
+    starts = hot_starts.to(offs.dtype)
+    h = torch.searchsorted(starts, offs.contiguous()).clamp(max=H - 1)
+    in_set = hot_lanes & (starts[h] == offs)
+    m = mcols.gather(2, h[:, None, :].expand(G, K, L)) > 0.5
+    return m & in_set[:, None, :]

@@ -26,6 +26,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..upload import upload, upload_all
 from . import _kernels
 from .matrices import MatrixScores
 
@@ -258,8 +259,16 @@ def sw_walk_nibbles_plain(words, best, qlens, R: int, d_pad: int):
     return _walk_plain(read, score, i, j, d_pad)
 
 
+def check_lengths(q_max: int, r_max: int, m_pad: int, n_pad: int) -> None:
+    """Raise unless the longest query and reference fit their pads and
+    MAX_LEN."""
+    if q_max > min(m_pad, MAX_LEN) or r_max > min(n_pad, MAX_LEN):
+        raise ValueError(f"lengths ({q_max}, {r_max}) exceed the pads "
+                         f"({m_pad}, {n_pad}) or {MAX_LEN}")
+
+
 def sw_align(qcodes, rcodes, qlens, rlens, mat, gap_open: int,
-             gap_extend: int):
+             gap_extend: int, *, lengths_checked: bool = False):
     """Smith-Waterman scores and alignment paths of B pairs.
 
     qcodes uint8[B, m_pad], rcodes uint8[B, n_pad] LETTER_INDEX codes;
@@ -267,23 +276,26 @@ def sw_align(qcodes, rcodes, qlens, rlens, mat, gap_open: int,
     Returns (score int32[B], q_ops int16[B, d_pad], r_ops int16[B, d_pad],
     n_ops int32[B]), d_pad = ceil8(m_pad + n_pad + 1): the first n_ops[b]
     entries of q_ops/r_ops are the forward path (-1 marks a gap column);
-    entries past n_ops are undefined on CUDA."""
+    entries past n_ops are undefined on CUDA.
+
+    The lengths are checked by reading their maxima from the tensors,
+    which on a card waits for the stream; a caller that has checked them
+    on the host (sw_batch_dispatch) passes lengths_checked=True and the
+    call only enqueues work."""
     _check_args(qcodes, rcodes, qlens, rlens, mat)
     B, m_pad = qcodes.shape
     n_pad = rcodes.shape[1]
     if B and m_pad >= MAX_LEN + 128:
         raise ValueError(f"m_pad {m_pad} is beyond the kernel's lanes")
     dev = qcodes.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if B and not lengths_checked:
+        check_lengths(*torch.stack([qlens.max(), rlens.max()]).tolist(),
+                      m_pad, n_pad)
     if dev.type == "cpu":
         return sw_align_plain(qcodes, rcodes, qlens, rlens, mat, gap_open,
                               gap_extend)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if B:
-        q_max, r_max = torch.stack([qlens.max(), rlens.max()]).tolist()
-        if q_max > min(m_pad, MAX_LEN) or r_max > min(n_pad, MAX_LEN):
-            raise ValueError(f"lengths ({q_max}, {r_max}) exceed the pads "
-                             f"({m_pad}, {n_pad}) or {MAX_LEN}")
     d_pad = _d_pad(m_pad, n_pad)
     R = rows_per_lane(m_pad)
     score = torch.empty(B, dtype=torch.int32, device=dev)
@@ -332,16 +344,36 @@ def pad_pairs(qs: List[np.ndarray], rs: List[np.ndarray]):
     return qcodes, rcodes, qlens, rlens
 
 
+# substitution matrices on their devices, by (device, matrix bytes, gaps)
+_MATRICES: dict = {}
+
+
+def _device_matrix(scores: MatrixScores, device) -> torch.Tensor:
+    """The substitution matrix as int32[24, 24] on `device`, uploaded once
+    per (device, matrix, gaps)."""
+    sub = np.ascontiguousarray(scores.sub_matrix, dtype=np.int32)
+    key = (torch.device(device), sub.tobytes(), scores.gap_open,
+           scores.gap_extend)
+    mat = _MATRICES.get(key)
+    if mat is None:
+        mat = _MATRICES[key] = upload(sub, device)
+    return mat
+
+
 def sw_batch_dispatch(qs: List[np.ndarray], rs: List[np.ndarray],
                       scores: MatrixScores, device):
-    """Upload a pair batch and enqueue the alignment on `device`;
-    sw_batch_resolve finishes.  Returns the device-side op arrays."""
-    arrays = [torch.from_numpy(a).to(device) for a in pad_pairs(qs, rs)]
-    qcodes, rcodes, qlens, rlens = arrays
-    mat = torch.from_numpy(np.ascontiguousarray(
-        scores.sub_matrix, dtype=np.int32)).to(device)
-    return sw_align(qcodes, rcodes, qlens, rlens, mat, scores.gap_open,
-                    scores.gap_extend)
+    """Check the pair lengths on the host, upload the batch and enqueue the
+    alignment on `device`; sw_batch_resolve finishes.  Nothing here waits
+    for the card.  Returns the device-side op arrays."""
+    qcodes, rcodes, qlens, rlens = pad_pairs(qs, rs)
+    if len(qs):
+        check_lengths(int(qlens.max()), int(rlens.max()), qcodes.shape[1],
+                      rcodes.shape[1])
+    qcodes, rcodes, qlens, rlens = upload_all((qcodes, rcodes, qlens, rlens),
+                                              device)
+    return sw_align(qcodes, rcodes, qlens, rlens,
+                    _device_matrix(scores, device), scores.gap_open,
+                    scores.gap_extend, lengths_checked=True)
 
 
 def sw_batch_resolve(handle) -> List[Tuple[int, list, list]]:

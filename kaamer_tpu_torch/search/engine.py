@@ -17,9 +17,19 @@ The pipeline is the JAX engine's, on one explicit device:
         engine's _finalize_pending)
 
 With hot=False every run expands on the cold path, which gives the same
-counts.  Position bitmaps come from the host binary search over each
-query's postings slices (hot runs included), the path the JAX engine takes
-whenever its device bitmaps do not fit (_positions_on_device).
+counts.  A batch dispatched with positions=True gets its position bitmaps
+on the device, in the chunk that counts it: the cold runs' bits from the
+expanded postings, the hot runs' from MT, the transposed membership
+matrix, shipped back bit-packed.  Where the JAX engine's gate
+(_positions_on_device) finds a chunk's indicators too large, and for
+queries past CAP_MAX, the bitmaps come from the host binary search over
+each query's postings slices; the bytes are the same either way.
+
+Uploads are pinned and non-blocking (upload.py), so dispatch_batch and
+every phase-2 chunk only enqueue work.  The host waits for the card where
+the JAX engine does: the totals read of schedule_batch, the certificates
+of prefetch_batch, the chunk outputs of _finalize_pending, and the slice
+starts of a query past CAP_MAX.
 """
 
 from __future__ import annotations
@@ -32,9 +42,11 @@ import torch
 from .. import codec, native
 from ..index.artifact import DBArtifact
 from ..ops import hotset
-from ..ops.count import (count_topk, dedup_runs, expand_hybrid, member_np,
-                         sort_rle)
+from ..ops.count import (count_topk, dedup_runs, expand_hybrid,
+                         expand_run_bitmaps, member_bitmap_from_rows,
+                         member_np, pack_bits, sort_rle)
 from ..ops.probe import probe_slices
+from ..upload import upload, upload_all
 
 # ---------------------------------------------------------------------------
 # The JAX engine's host half (kaamer_tpu/search/engine.py), copied
@@ -56,6 +68,15 @@ TOPK_MIN = 16
 
 def _next_pow2(n: int) -> int:
     return 1 << (int(n) - 1).bit_length() if n > 1 else 1
+
+
+def _positions_on_device(cap: int, k: int, L: int, B: int) -> bool:
+    """Whether the MXU bitmap path fits: both the [B, cap, L] and
+    [B, cap, k] bf16 indicators must stay bounded (< ~0.5 GB).  Beyond this
+    the lazy host binary-search path wins, since it only touches the few
+    kept hits of gate-passing queries."""
+    budget = (1 << 17) * 2048
+    return cap * L * B <= budget and cap * k * B <= budget
 
 
 def _cap_bucket(n: int) -> int:
@@ -288,15 +309,39 @@ def _phase1_impl(table, codes, n_kmers, *, hash_log2: int, miss_start: int,
             cum_s[:, -1], cum_t[:, -1], whot.sum(dim=1))
 
 
+def _cold_bitmaps(rows, seg, hit_rows, run_start):
+    """The cold runs' position bitmaps of each top hit, forward-filled
+    from run starts to positions (engine.py:1276-1277): bool[G, k, L]."""
+    L = run_start.shape[1]
+    return expand_run_bitmaps(
+        member_bitmap_from_rows(rows, seg, hit_rows, L), run_start)
+
+
+def _with_hot_bitmaps(found, MT, hot_starts, offs, whot, run_start,
+                      hit_rows, counts):
+    """found | the hot runs' bits, rows of count 0 (sentinel padding)
+    emptied, bit-packed (engine.py:1202-1206)."""
+    hot_lanes = hotset.hot_lane_mask(whot, run_start)
+    found = found | hotset.hot_position_bitmaps(offs, hot_lanes, hot_starts,
+                                                MT, hit_rows)
+    return pack_bits(found & (counts[:, :, None] > 0))
+
+
 def _phase2_grouped_impl(postings, offs, cum_s, wstart, cum_t, lens_l, *,
-                         cap_s: int, cap_t: int, k: int):
-    """engine.py:_phase2_grouped_impl (positions=False) in torch: two-tier
-    expansion + weighted count + rank.  Returns (counts int32[G, k],
-    hit_rows int64[G, k]).  The JAX function's run_start argument fed only
-    its device bitmaps and is dropped."""
-    rows, _, _, w = expand_hybrid(postings, offs, cum_s, wstart, cum_t,
-                                  lens_l, cap_s, cap_t)
-    return count_topk(rows, k, weights=w)
+                         cap_s: int, cap_t: int, k: int, run_start=None,
+                         positions: bool = False):
+    """engine.py:_phase2_grouped_impl in torch: two-tier expansion +
+    weighted count + rank.  Returns (counts int32[G, k], hit_rows
+    int64[G, k]), and with positions=True (which needs run_start) the
+    hits' position bitmaps uint8[G, k, L // 8] packed little-endian."""
+    rows, seg, _, w = expand_hybrid(postings, offs, cum_s, wstart, cum_t,
+                                    lens_l, cap_s, cap_t)
+    counts, hit_rows = count_topk(rows, k, weights=w)
+    if not positions:
+        return counts, hit_rows
+    found = _cold_bitmaps(rows, seg, hit_rows, run_start)
+    # rows with count 0 are sentinel padding; their bitmaps must be empty
+    return counts, hit_rows, pack_bits(found & (counts[:, :, None] > 0))
 
 
 def _hot_counts(M, hot_starts, offs, whot):
@@ -311,52 +356,70 @@ def _hot_counts(M, hot_starts, offs, whot):
 
 def _phase2_hot_impl(postings, M, hot_starts, offs, cum_s, wstart, whot,
                      cum_t, lens_l, *, cap_s: int, cap_t: int, k: int,
-                     pack_w_bits: int = 0, k_cold: int = 0):
-    """engine.py:_phase2_hot_impl (positions=False) in torch: two-tier cold
-    expansion + dense hot matmul + threshold merge.  Returns (counts
-    int32[G, k], hit_rows int64[G, k], exact bool[G]).  Where the TAM keys
-    cannot hold the row (pack_w_bits == 0, or P >= 2^(31 - bits)) the
-    per-lane merge serves and exact is all True, as in the JAX engine.
-    The JAX function's MT and run_start arguments fed only its device
-    bitmaps and are dropped."""
-    if not (pack_w_bits and M.shape[1] < (1 << (31 - pack_w_bits))):
-        counts, hit_rows = _phase2_hot_legacy_impl(
-            postings, M, hot_starts, offs, cum_s, wstart, whot, cum_t,
-            lens_l, cap_s=cap_s, cap_t=cap_t, k=k)
-        return counts, hit_rows, torch.ones(
-            counts.shape[0], dtype=torch.bool, device=counts.device)
-    rows, _, _, w = expand_hybrid(postings, offs, cum_s, wstart, cum_t,
-                                  lens_l, cap_s, cap_t)
+                     pack_w_bits: int = 0, k_cold: int = 0, run_start=None,
+                     MT=None, positions: bool = False):
+    """engine.py:_phase2_hot_impl in torch: two-tier cold expansion +
+    dense hot matmul + threshold merge.  Returns (counts int32[G, k],
+    hit_rows int64[G, k], exact bool[G]), and with positions=True (which
+    needs run_start and MT) the packed position bitmaps uint8[G, k,
+    L // 8].  Where the TAM keys cannot hold the row (pack_w_bits == 0,
+    or P >= 2^(31 - bits)) the per-lane merge serves and exact is all
+    True, as in the JAX engine."""
+    rows, seg, _, w = expand_hybrid(postings, offs, cum_s, wstart, cum_t,
+                                    lens_l, cap_s, cap_t)
     counts_hot = _hot_counts(M, hot_starts, offs, whot)
-    return hotset.merge_hot_cold_tam(
-        counts_hot, rows, w, k, pack_w_bits=pack_w_bits,
-        k_cand=max(hotset.CAND_K, k), k_cold=max(k_cold, k))
+    if pack_w_bits and M.shape[1] < (1 << (31 - pack_w_bits)):
+        counts, hit_rows, exact = hotset.merge_hot_cold_tam(
+            counts_hot, rows, w, k, pack_w_bits=pack_w_bits,
+            k_cand=max(hotset.CAND_K, k), k_cold=max(k_cold, k))
+    else:
+        s, cold_counts, is_start = sort_rle(rows, weights=w)
+        counts, hit_rows = hotset.merge_hot_cold(counts_hot, s, cold_counts,
+                                                 is_start, k)
+        exact = torch.ones(counts.shape[0], dtype=torch.bool,
+                           device=counts.device)
+    if not positions:
+        return counts, hit_rows, exact
+    found = _cold_bitmaps(rows, seg, hit_rows, run_start)
+    return counts, hit_rows, exact, _with_hot_bitmaps(
+        found, MT, hot_starts, offs, whot, run_start, hit_rows, counts)
 
 
 def _phase2_hot_legacy_impl(postings, M, hot_starts, offs, cum_s, wstart,
                             whot, cum_t, lens_l, *, cap_s: int, cap_t: int,
-                            k: int):
-    """engine.py:_phase2_hot_legacy_impl (positions=False) in torch: the
-    exact per-lane candidate-union merge, used to re-run rows whose TAM
-    certificate fails.  Returns (counts int32[G, k], hit_rows int64[G, k])."""
-    rows, _, _, w = expand_hybrid(postings, offs, cum_s, wstart, cum_t,
-                                  lens_l, cap_s, cap_t)
+                            k: int, run_start=None, MT=None,
+                            positions: bool = False):
+    """engine.py:_phase2_hot_legacy_impl in torch: the exact per-lane
+    candidate-union merge, used to re-run rows whose TAM certificate
+    fails.  Returns (counts int32[G, k], hit_rows int64[G, k]), and with
+    positions=True the packed position bitmaps as _phase2_hot_impl."""
+    rows, seg, _, w = expand_hybrid(postings, offs, cum_s, wstart, cum_t,
+                                    lens_l, cap_s, cap_t)
     s, cold_counts, is_start = sort_rle(rows, weights=w)
     counts_hot = _hot_counts(M, hot_starts, offs, whot)
-    return hotset.merge_hot_cold(counts_hot, s, cold_counts, is_start, k)
+    counts, hit_rows = hotset.merge_hot_cold(counts_hot, s, cold_counts,
+                                             is_start, k)
+    if not positions:
+        return counts, hit_rows
+    found = _cold_bitmaps(rows, seg, hit_rows, run_start)
+    return counts, hit_rows, _with_hot_bitmaps(
+        found, MT, hot_starts, offs, whot, run_start, hit_rows, counts)
 
 
 class _HostFetch:
     """The device_get that _finalize_pending calls: one pass moving every
     chunk's outputs to the host in the JAX engine's host dtypes -- int64
-    rows as uint32, int32 counts as int32, the bool certificate as bool."""
+    rows as uint32, int32 counts as int32, the bool certificate as bool,
+    the packed uint8 bitmaps as uint8."""
 
     @staticmethod
     def _host(t: torch.Tensor) -> np.ndarray:
         a = t.cpu().numpy()
         if t.dtype == torch.int64:
             return a.astype(np.uint32)
-        return a if t.dtype == torch.bool else a.astype(np.int32, copy=False)
+        if t.dtype in (torch.bool, torch.uint8):
+            return a
+        return a.astype(np.int32, copy=False)
 
     @classmethod
     def device_get(cls, tree):
@@ -377,6 +440,17 @@ class _BatchIds:
             self._np = self._dev.cpu().numpy()
             self._dev = None
         return self._np
+
+
+def _slice_lens(starts: np.ndarray, offs: np.ndarray) -> np.ndarray:
+    """Postings-slice length at each slice start in offs: the dense set id
+    by a binary search over the strictly increasing set starts (the miss
+    sentinel start == P maps to the empty set row n_sets).  The keys take
+    the starts' int32, which holds every start (< 2^31, checked at load):
+    int64 keys would make numpy cast all of starts, tens of millions of
+    entries at 1M proteins, on every call."""
+    ids = np.searchsorted(starts, offs.astype(starts.dtype), side="left")
+    return (starts[ids + 1] - starts[ids]).astype(np.int64)
 
 
 class QueryCounts:
@@ -403,12 +477,8 @@ class QueryCounts:
     def _materialize_slices(self):
         if self._offs is None:
             offs = self._batch.host()[self._row, : self._n_kmers].astype(np.int64)
-            starts = self._engine.set_starts_np
-            # slice start -> dense set id (strictly increasing starts; the
-            # miss sentinel start == P maps to the empty set row n_sets)
-            ids = np.searchsorted(starts, offs, side="left")
             self._offs = offs
-            self._lens = (starts[ids + 1] - starts[ids]).astype(np.int64)
+            self._lens = _slice_lens(self._engine.set_starts_np, offs)
 
     @property
     def offs(self) -> np.ndarray:
@@ -587,7 +657,7 @@ class SearchEngine(PositionBitmapServing):
         # hot sets (engine.py:476-515): None => every run is cold
         self.hot_starts = None
         self.hot_thresh = 1 << 30
-        self.M = None
+        self.M = self.MT = None
         self._hot_chunk_rows = HOT_CHUNK_COST_ROWS
         self._hot_lane_rows = 0
         h_max = 2048 if art.num_proteins <= (1 << 18) else 1024
@@ -600,6 +670,9 @@ class SearchEngine(PositionBitmapServing):
             self.M = hotset.build_membership(self.postings_np, so,
                                              hot_starts_np, P_pad,
                                              self.device)
+            # bf16[P_pad, H] row-major, for the hot half of the position
+            # bitmaps (engine.py:503): a hit's column of M is one row here
+            self.MT = self.M.to(torch.bfloat16).t().contiguous()
             # the JAX engine's planner economics, from its constants
             H = int(hot_starts_np.shape[0])
             self._hot_chunk_rows = int(
@@ -622,8 +695,9 @@ class SearchEngine(PositionBitmapServing):
     def dispatch_batch(self, seqs: Sequence[str], sizes: Sequence[int], k: int,
                        positions: bool = False):
         """Upload one batch and enqueue phase 1; returns a handle for
-        schedule_batch.  positions is accepted for the pipeline's call:
-        bitmaps always come from the host path."""
+        schedule_batch.  Nothing here waits for the card.  positions=True
+        asks every phase-2 chunk of the batch for its hits' position
+        bitmaps."""
         if len(seqs) == 0:
             return None
         L = _next_pow2(max(max(sizes), 8))
@@ -632,14 +706,14 @@ class SearchEngine(PositionBitmapServing):
         if wire is None:
             wire = codec.pack_codes7(
                 codec.pad_codes_batch(seqs, width))
-        codes = torch.from_numpy(wire.view(np.int32)).to(self.device)
-        n_kmers = torch.tensor(list(sizes), dtype=torch.int64,
-                               device=self.device)
+        codes, n_kmers = upload_all(
+            [wire.view(np.int32), np.asarray(sizes, dtype=np.int64)],
+            self.device)
         outs1 = _phase1_impl(self.table, codes, n_kmers,
                              hash_log2=self.hash_log2,
                              miss_start=self.miss_start,
                              hot_thresh=self.hot_thresh, width=width)
-        return (outs1, list(sizes), k, L)
+        return (outs1, list(sizes), k, L, positions)
 
     def resolve_batch(self, handle, min_top: int = 0) -> List[QueryCounts]:
         return self.collect_batch(self.schedule_batch(handle), min_top)
@@ -671,8 +745,9 @@ class SearchEngine(PositionBitmapServing):
         CAP_MAX a query counted on the host."""
         if handle is None:
             return None
-        outs1, sizes, k, L = handle
-        ts_h, tt_h, hot_h = (outs1[i].cpu().numpy() for i in (7, 8, 9))
+        outs1, sizes, k, L, positions = handle
+        # the one read of the batch that waits for the card (engine.py:684)
+        ts_h, tt_h, hot_h = torch.stack(outs1[7:10]).cpu().numpy()
         # effective expansion volume: tile rows pay 128 sort lanes each
         totals_h = ts_h + 128 * tt_h
         B = len(sizes)
@@ -746,11 +821,12 @@ class SearchEngine(PositionBitmapServing):
                     sub = rows[s0 : s0 + g_ok]
                     cs, ct = tier_caps(sub, rerun)
                     pending.append((sub, self._dispatch_group(
-                        outs1, sub, cs, ct, k_full, L, hot)))
+                        outs1, sub, g_ok, cs, ct, k_full, L, positions,
+                        hot)))
                 continue
             pending.append((rows, self._dispatch_group(
-                outs1, rows, cap_s, cap_t, k_full, L, hot)))
-        rerun_ctx = (outs1, ts_l, tt_l, k_full, L)
+                outs1, rows, G_c, cap_s, cap_t, k_full, L, positions, hot)))
+        rerun_ctx = (outs1, ts_l, tt_l, k_full, L, positions)
         # [..., n_primary (set by prefetch_batch), the min_top it gated]
         return [pending, results, sizes, B, batch_ids, rerun_ctx, None, None]
 
@@ -801,7 +877,7 @@ class SearchEngine(PositionBitmapServing):
         """Re-dispatch TAM-uncertified rows through the per-lane legacy
         merge in totals-sorted chunks at pow2 tier caps
         (engine.py:880-916)."""
-        outs1, ts_l, tt_l, k_full, L = rerun_ctx
+        outs1, ts_l, tt_l, k_full, L, positions = rerun_ctx
         flagged = sorted(flagged, key=lambda i: -(ts_l[i] + 128 * tt_l[i]))
         out = []
         c0 = 0
@@ -824,40 +900,51 @@ class SearchEngine(PositionBitmapServing):
             max_t = max(tt_l[i] for i in rows)
             cap_t = max(32, _next_pow2(max_t)) if max_t else 0
             out.append((rows, self._dispatch_group(
-                outs1, rows, min(cap_s, CAP_MAX), cap_t, k_full, L,
-                hot=True, legacy=True)))
+                outs1, rows, G_c, min(cap_s, CAP_MAX), cap_t, k_full, L,
+                positions, hot=True, legacy=True)))
         return out
 
-    def _dispatch_group(self, outs1, rows: List[int], cap_s: int, cap_t: int,
-                        k_full: int, L: int, hot: bool = False,
-                        legacy: bool = False):
+    def _dispatch_group(self, outs1, rows: List[int], G: int, cap_s: int,
+                        cap_t: int, k_full: int, L: int, positions: bool,
+                        hot: bool = False, legacy: bool = False):
         """Enqueue one phase-2 chunk over the given batch rows; returns the
         item _finalize_pending reads: (outputs, pos_dev[, flagged]), where
-        flagged marks hot chunks whose outputs carry the certificate at
-        index 2.  legacy=True routes through the exact per-lane merge."""
-        idx = torch.tensor(rows, dtype=torch.int64, device=self.device)
-        offs, cum_s, wstart, _, whot, cum_t, lens_l = (
+        pos_dev marks outputs ending in packed position bitmaps and
+        flagged hot chunks whose outputs carry the certificate at index 2.
+        G is the chunk's planned width, which the JAX engine pads the
+        chunk to: the bitmap gate reads it (the port dispatches only the
+        rows).  legacy=True routes through the exact per-lane merge."""
+        idx = upload(np.asarray(rows, dtype=np.int64), self.device)
+        offs, cum_s, wstart, run_start, whot, cum_t, lens_l = (
             t.index_select(0, idx) for t in outs1[:7])
         hot = hot and self.hot_starts is not None
+        cap_e = cap_s + 128 * cap_t
+        k2 = min(k_full, cap_e)
+        # the hot path ranks k_full candidates (its dense top-k is not
+        # cap-bounded), so its bitmap-cost check uses k_full, not k2
+        pos_dev = positions and _positions_on_device(
+            cap_e, k_full if hot or legacy else k2, L, G)
+        bitmaps = dict(run_start=run_start, positions=pos_dev)
+        if hot or legacy:
+            bitmaps["MT"] = self.MT
         if legacy:
             self.stats["legacy"] += 1
             return _phase2_hot_legacy_impl(
                 self.postings, self.M, self.hot_starts, offs, cum_s, wstart,
-                whot, cum_t, lens_l, cap_s=cap_s, cap_t=cap_t,
-                k=k_full), False
+                whot, cum_t, lens_l, cap_s=cap_s, cap_t=cap_t, k=k_full,
+                **bitmaps), pos_dev
         if hot:
             self.stats["hot"] += 1
             return _phase2_hot_impl(
                 self.postings, self.M, self.hot_starts, offs, cum_s, wstart,
                 whot, cum_t, lens_l, cap_s=cap_s, cap_t=cap_t, k=k_full,
-                pack_w_bits=self._pack_w_bits(L),
-                k_cold=self._k_cold), False, True
+                pack_w_bits=self._pack_w_bits(L), k_cold=self._k_cold,
+                **bitmaps), pos_dev, True
         self.stats["cold"] += 1
-        k2 = min(k_full, cap_s + 128 * cap_t)
         outs2 = _phase2_grouped_impl(self.postings, offs, cum_s, wstart,
                                      cum_t, lens_l, cap_s=cap_s, cap_t=cap_t,
-                                     k=k2)
-        return outs2, False, False
+                                     k=k2, **bitmaps)
+        return outs2, pos_dev, False
 
     def _pack_w_bits(self, L: int) -> int:
         """engine.py:_pack_w_bits: the weight field width of the JAX
@@ -873,9 +960,7 @@ class SearchEngine(PositionBitmapServing):
         """Unbounded host count (np.bincount) for a query whose expansion
         exceeds CAP_MAX (engine.py:979-1004)."""
         offs = batch_ids.host()[i, :n_kmers].astype(np.int64)
-        starts = self.set_starts_np
-        ids = np.searchsorted(starts, offs, side="left")
-        lens = (starts[ids + 1] - starts[ids]).astype(np.int64)
+        lens = _slice_lens(self.set_starts_np, offs)
         segs = [self.postings_np[int(o) : int(o) + int(l)]
                 for o, l in zip(offs, lens) if l > 0]
         if segs:

@@ -1,9 +1,9 @@
 """HTTP API server on the torch engine (kaamer_tpu/server/app.py).
 
-  GET  /api/dbinfo              -> KStats JSON
-  POST /api/search/protein      -> streamed TSV/JSON, form fields as the
-                                   JAX server's (parse_search_options)
-  POST /api/search/{nucleotide,fastq} -> 501 (not ported yet)
+  GET  /api/dbinfo                        -> KStats JSON
+  POST /api/search/{protein,nucleotide,fastq} -> streamed TSV/JSON, form
+                                             fields as the JAX server's
+                                             (parse_search_options)
 
 Form parsing, option parsing, the default options and the disconnect
 poller are the JAX server's (kaamer_tpu/server/app.py:42-164), copied
@@ -26,10 +26,15 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..index.artifact import load_db
 from ..search.engine import SearchEngine
-from ..search.options import PROTEIN, SearchOptions
+from ..search.options import NUCLEOTIDE, PROTEIN, READS, SearchOptions
 from ..search.pipeline import run_search
 
-_NOT_PORTED = ("/api/search/nucleotide", "/api/search/fastq")
+# search route -> SequenceType (kaamer_tpu/server/app.py:219-223)
+ROUTES = {
+    "/api/search/protein": PROTEIN,
+    "/api/search/nucleotide": NUCLEOTIDE,
+    "/api/search/fastq": READS,
+}
 
 
 def _parse_form(handler: BaseHTTPRequestHandler):
@@ -183,15 +188,12 @@ def make_handler(engine: SearchEngine, tmp_folder: str):
 
         def do_POST(self):
             path = urllib.parse.urlparse(self.path).path
-            if path in _NOT_PORTED:
-                _parse_form(self)  # drain the body of the kept-alive request
-                self._reply(501, f"{path}: not ported yet\n".encode())
-                return
-            if path != "/api/search/protein":
+            seq_type = ROUTES.get(path)
+            if seq_type is None:
                 self.send_error(404)
                 return
             fields, files = _parse_form(self)
-            opts = _default_options(PROTEIN)
+            opts = _default_options(seq_type)
             err = parse_search_options(opts, fields, files, tmp_folder)
             if err:
                 self._reply(400, (err + "\n").encode())

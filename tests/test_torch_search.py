@@ -9,7 +9,6 @@ import os
 import subprocess
 import sys
 import threading
-import urllib.error
 import urllib.parse
 import urllib.request
 
@@ -21,7 +20,7 @@ import kaamer_tpu.ops.swalign_pallas as swalign_pallas
 from kaamer_tpu.index.artifact import load_db as jax_load_db
 from kaamer_tpu.index.build import build_db
 from kaamer_tpu.search.engine import SearchEngine as JaxEngine
-from kaamer_tpu.search.options import NUCLEOTIDE, PROTEIN
+from kaamer_tpu.search.options import NUCLEOTIDE, PROTEIN, READS
 from kaamer_tpu.search.pipeline import run_search as jax_run_search
 from kaamer_tpu.server.app import _default_options as jax_default_options
 from kaamer_tpu_torch.index.artifact import load_db
@@ -29,6 +28,8 @@ from kaamer_tpu_torch.ops import swalign as torch_swalign
 from kaamer_tpu_torch.search.engine import SearchEngine
 from kaamer_tpu_torch.search.pipeline import run_search
 from kaamer_tpu_torch.server.app import _default_options, make_server
+
+from tests_codon_helper import encode_protein
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -108,14 +109,6 @@ def test_aln_bytes_equal_jax(db, monkeypatch):
     assert got == want
     assert got.count(b"\n") > 5
     assert torch_swalign.HOST_DP_PAIRS == host_before  # went to the wavefront
-
-
-def test_nucleotide_not_ported(db):
-    art, tmp, engine, _ = db
-    o = _opts(tmp / "q.fasta")
-    o.SequenceType = NUCLEOTIDE
-    with pytest.raises(NotImplementedError):
-        b"".join(run_search(engine, o))
 
 
 def test_engine_serves_hot_sets(db):
@@ -257,10 +250,25 @@ def test_server_answers_over_http(db):
             body = resp.read()
         want = b"".join(run_search(engine, _opts(tmp / "q.fasta", "json")))
         assert body == want
-        with pytest.raises(urllib.error.HTTPError) as err:
-            urllib.request.urlopen(urllib.request.Request(
-                url + "/api/search/nucleotide", data=data))
-        assert err.value.code == 501
+        # translated routes: reverse-translated database proteins as one
+        # contig and as reads
+        dna = ["taa" + encode_protein(art.sequence(i)) + "taa"
+               for i in range(0, 40, 4)]
+        nt_path, fq_path = tmp / "nt.fasta", tmp / "nt.fq"
+        nt_path.write_text(">c1 contig\n" + "ccc".join(dna) + "\n")
+        fq_path.write_text("".join(f"@r{i}\n{d}\n+\n{'I' * len(d)}\n"
+                                   for i, d in enumerate(dna)))
+        for route, path, seq_type in (("nucleotide", nt_path, NUCLEOTIDE),
+                                      ("fastq", fq_path, READS)):
+            form = {"type": "string", "sequence": path.read_text()}
+            with urllib.request.urlopen(urllib.request.Request(
+                    url + "/api/search/" + route,
+                    data=urllib.parse.urlencode(form).encode())) as resp:
+                body = resp.read()
+            o = _default_options(seq_type)
+            o.File = str(path)
+            assert body == b"".join(run_search(engine, o))
+            assert body.count(b"\n") > 5
     finally:
         httpd.shutdown()
         httpd.server_close()

@@ -45,7 +45,13 @@ def test_import_every_module_loads_no_jax_package():
     """A fresh interpreter imports every module of the port (walked with
     pkgutil) and chip_smoke: no jax, kaamer_tpu or bench module loads."""
     mods = _port_modules()
-    assert len(mods) > 20 and "kaamer_tpu_torch.index.build" in mods
+    assert len(mods) > 20 and {
+        "kaamer_tpu_torch.index.build", "kaamer_tpu_torch.search.orf",
+        "kaamer_tpu_torch.search.gcode", "kaamer_tpu_torch.upload",
+        "kaamer_tpu_torch.bench.serving"} <= set(mods)
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert {"kaamer_tpu_torch/search/orf.py",
+            "kaamer_tpu_torch/search/gcode.py"} <= files
     code = (
         "import importlib, sys\n"
         f"for m in {mods + ['chip_smoke']!r}:\n"
