@@ -40,7 +40,19 @@ bench.py: the database comes from the port's own generator
   8. times the position-bitmap branch (torch.profiler, device time of a
      batch with and without bitmaps) and reads the peak device memory;
   9. serves R1, R3, R4 and R5 again from a cold engine (hot=False): the
-     bytes must equal the hot engine's.
+     bytes must equal the hot engine's;
+ 10. shard phase: the same database on ShardedSearchEngine (per-shard
+     hot sets) over a one-row grid -- with one card two shards sharing
+     it, else min(4, cards) cards -- prints each shard's resident bytes,
+     serves R1-R5 over HTTP twice each (every body equal to the hot
+     single-device engine's; sw_align launches per request, R2 and R5
+     must launch it), R3 and R5 with the bitmap gate off, and the sync
+     proof of step 6 on the sharded dispatch_batch and schedule_batch;
+ 11. the dryrun_multichip twin (kaamer_tpu_torch.bench.multichip) on a
+     (2, 2) grid of the cards, repeated as needed;
+ 12. a shard-built (2-shard) skewed database of 100,000 proteins (or
+     --proteins, if fewer): R1 and R3 bytes equal its global build's on
+     SearchEngine.
 
 Prints the card (nvidia-smi name and power limit), per-request and
 per-phase times, one JSON line of kernel results (each with its bound: the
@@ -86,6 +98,8 @@ SW_OPS_PER_CELL = 17
 # int32 operations of one smem_dyngather element: mask, load, add, and the
 # index update (multiply, add)
 DYNGATHER_OPS = 5
+# torch.profiler sessions tried before a device time falls back to CUDA events
+PROFILER_TRIES = 3
 # the Pallas probes: (probe, the pallas_call it replaces)
 PROBES = (
     ("P1", "scripts/pallas_dma_probe.py:58"),
@@ -227,20 +241,31 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
     """Mean device time (ms) of the CUDA kernels whose name holds `kernel`
     over reps calls of fn, by torch.profiler: the kernel alone, without
     the host's launch cost.  The profiler may record fewer launches than
-    were made (4 of 20 seen once on the H100); the mean is over those it
-    recorded, and the run fails if it recorded none."""
-    hits = [e for e in device_events(fn, reps) if kernel in e.key]
-    check(bool(hits), f"profiler recorded no launch of {kernel} in {reps}")
-    return (sum(e.device_time_total for e in hits)
-            / sum(e.count for e in hits) / 1e3)
+    were made (4 of 20 seen once on the H100, none of 20 once); the mean
+    is over those it recorded.  When PROFILER_TRIES sessions record none,
+    the time is the median call time by CUDA events instead, and the run
+    says so."""
+    for _ in range(PROFILER_TRIES):
+        hits = [e for e in device_events(fn, reps) if kernel in e.key]
+        if hits:
+            return (sum(e.device_time_total for e in hits)
+                    / sum(e.count for e in hits) / 1e3)
+    ms = median_ms(fn, reps)
+    print(f"torch.profiler recorded no launch of {kernel} in "
+          f"{PROFILER_TRIES} x {reps} calls: its device time is the median "
+          f"call time by CUDA events, {ms} ms")
+    return ms
 
 
 def device_total_ms(fn, reps: int = 3) -> float:
     """Device time (ms) of one call of fn: every kernel and copy that
-    torch.profiler records over reps calls, summed, over reps."""
-    total = sum(e.device_time_total for e in device_events(fn, reps))
-    check(total > 0, "the profiler recorded no device time")
-    return total / reps / 1e3
+    torch.profiler records over reps calls, summed, over reps.  Fails
+    when PROFILER_TRIES sessions record no device time."""
+    for _ in range(PROFILER_TRIES):
+        total = sum(e.device_time_total for e in device_events(fn, reps))
+        if total > 0:
+            return total / reps / 1e3
+    check(False, "the profiler recorded no device time")
 
 
 def sw_bound(qc, rc, ql, rl, n_ops):
@@ -851,6 +876,195 @@ def cold_pass(art, device, reqs, bodies, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# shard phase
+# ---------------------------------------------------------------------------
+
+
+def shard_grid(cards, n_shards: int = 0):
+    """The shard phase's (dp, shard) grid: one dp row; on one card two
+    shards sharing it, else min(4, cards) cards (n_shards of them when
+    given)."""
+    if len(cards) == 1:
+        return [cards * (n_shards or 2)]
+    return [cards[: n_shards or min(4, len(cards))]]
+
+
+def nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def shard_sync(engine, queries) -> None:
+    """sync_phase's proof on the sharded engine: dispatch_batch under
+    sync debug mode "error", then schedule_batch under "warn", which must
+    wait for the card exactly once (the totals read)."""
+    import warnings
+
+    import torch
+
+    seqs = queries[:256]
+    sizes = [len(s) - 6 for s in seqs]
+    for positions in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handle = engine.dispatch_batch(seqs, sizes, k=10,
+                                           positions=positions)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                sched = engine.schedule_batch(handle)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(w.message) for w in caught
+                 if "synchronizing CUDA operation" in str(w.message)]
+        check(not sched[1], "a query of the batch went past CAP_MAX")
+        check(len(syncs) == 1, f"sharded schedule_batch waited for the card "
+              f"{len(syncs)} times, not once: {syncs}")
+        got = engine.collect_batch(sched)
+        print(f"sharded sync proof (positions={positions}): dispatch_batch "
+              f"of {len(seqs)} queries under sync debug mode 'error' raised "
+              f"nothing; schedule_batch made {len(syncs)} synchronizing call"
+              f" (the totals read); {len(got)} queries collected")
+
+
+def shard_phase(art, reqs, bodies, queries, card: str, cards) -> dict:
+    """R1-R5 over HTTP through ShardedSearchEngine on the 1M database, each
+    twice, each body equal to the hot single-device engine's; R3 and R5
+    again with the bitmap gate off; the sync proof.  Returns each kernel's
+    launches per request, counted from 0 just before each first pass."""
+    import gc
+
+    import torch
+
+    from kaamer_tpu_torch.ops import probe_bench as pb
+    from kaamer_tpu_torch.ops import swalign_cuda as swc
+    from kaamer_tpu_torch.parallel.dist import NO_START, ShardedSearchEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    grid = shard_grid(cards)
+    devs = sorted({d for row in grid for d in row}, key=str)
+    base = {d: torch.cuda.memory_allocated(d) for d in devs}
+    for d in devs:
+        torch.cuda.reset_peak_memory_stats(d)
+    t0 = time.perf_counter()
+    eng = ShardedSearchEngine(art, grid)
+    torch.cuda.synchronize()
+    check(eng.hot_starts is not None, "the sharded engine has no hot sets")
+    print(f"sharded engine on {[[str(d) for d in r] for r in grid]} (dp "
+          f"{eng.dp}, {eng.n_shards} shards{', sharing one card' if len(devs) < eng.n_shards else ''}): "
+          f"built in {time.perf_counter() - t0} s [{card}]")
+    for s in range(eng.n_shards):
+        M, MT = eng.M[0][s], eng.MT[0][s]
+        n_hot = int((eng.hot_starts[0][s] < NO_START).sum())
+        print(f"  shard {s} on {grid[0][s]}: table {nbytes(eng.tables[0][s])}"
+              f" bytes, postings {nbytes(eng.postings[0][s])} "
+              f"({eng.sharded.postings_sizes[s]} real), {n_hot} hot sets "
+              f"(len >= {eng.hot_thresh_np[s]}), M {tuple(M.shape)} "
+              f"{M.dtype} {nbytes(M)} bytes, MT {tuple(MT.shape)} {MT.dtype} "
+              f"{nbytes(MT)} bytes")
+    print(f"sharded engine resident: "
+          f"{sum(torch.cuda.memory_allocated(d) - base[d] for d in devs)} "
+          f"bytes over {[str(d) for d in devs]} [{card}]")
+
+    per_request = {}
+    with Served(eng) as url:
+        for name, route, fields, unit in reqs:
+            walls = []
+            for rep in range(2):
+                swc.reset_launches()
+                pb.reset_launches()
+                status, body, wall = post(url + route,
+                                          {"type": "string", **fields})
+                check(status == 200, f"sharded {name}: HTTP {status}")
+                check(body == bodies[name], f"sharded {name} bytes != the "
+                      "single-device engine's")
+                walls.append(wall)
+                if rep == 0:
+                    per_request[name] = {**swc.launches, **pb.launches}
+            print(f"sharded {name}: {len(body)} bytes == single-device, wall "
+                  f"{walls[0]} s, warm {walls[1]} s [{card}]")
+        for name in ("R3", "R5"):
+            fields = next(f for n, _, f, _ in reqs if n == name)
+            route = next(r for n, r, _, _ in reqs if n == name)
+            status, body, wall = gate_off(lambda: post(
+                url + route, {"type": "string", **fields}))
+            check(status == 200 and body == bodies[name],
+                  f"sharded {name}: host-bitmap bytes != device-bitmap bytes")
+            print(f"sharded {name} with the bitmap gate off (host bitmaps): "
+                  f"bytes == single-device, wall {wall} s")
+    print(f"sharded kernel launches per request (first pass): {per_request};"
+          f" groups over R1-R5 and the gate-off passes: {eng.stats}")
+    for name in ("R2", "R5"):
+        check(per_request[name]["sw_align"] > 0,
+              f"sharded {name} never launched sw_align")
+    check(eng.stats["hot"] > 0, "no sharded hot group was served")
+    shard_sync(eng, queries)
+    for d in devs:
+        print(f"peak device memory with the sharded engine on {d}: "
+              f"{torch.cuda.max_memory_allocated(d)} bytes [{card}]")
+    # the server's handler class holds the engine in a reference cycle:
+    # free it before the next phases allocate
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return per_request
+
+
+def dryrun_phase(cards) -> None:
+    """The dryrun_multichip twin on a (2, 2) grid of the cards, repeated
+    as needed: global and shard-built artifacts == SearchEngine bytes."""
+    from kaamer_tpu_torch.bench.multichip import device_grid, dryrun_multichip
+
+    grid = device_grid(2, 2, cards)
+    dryrun_multichip(grid)
+    print(f"dryrun_multichip twin on "
+          f"{[[str(d) for d in r] for r in grid]}: global and shard-built "
+          f"bytes == SearchEngine")
+
+
+def shard_built_phase(n_proteins: int, card: str, cards) -> None:
+    """A shard-built artifact (index_db with 2 shards) of the skewed
+    generator's proteins, served by ShardedSearchEngine: R1 and R3 bytes
+    equal a global build of the same input served by SearchEngine."""
+    from kaamer_tpu_torch.bench import data
+    from kaamer_tpu_torch.parallel.dist import ShardedSearchEngine
+    from kaamer_tpu_torch.search.engine import SearchEngine
+
+    root = os.path.join(data.CACHE_ROOT, f"skew_{n_proteins}")
+    t0 = time.perf_counter()
+    g = data.ensure_db(root, data.build_skewed_db, n_proteins, 77)
+    t1 = time.perf_counter()
+    s = data.ensure_db(root + "_shards2", data.build_skewed_db, n_proteins,
+                       77, 2)
+    t2 = time.perf_counter()
+    check(s.index_shards == 2, f"built {s.index_shards} shards, not 2")
+    print(f"{n_proteins}-protein databases: global ready in {t1 - t0} s, "
+          f"2-shard build in {t2 - t1} s")
+    _, reqs = smoke_requests(g, np.random.default_rng(2026))
+    engines = (SearchEngine(g, cards[0]),
+               ShardedSearchEngine(s, shard_grid(cards, 2)))
+    for name, route, fields, _ in reqs:
+        if name not in ("R1", "R3"):
+            continue
+        got = []
+        for eng in engines:
+            with Served(eng) as url:
+                status, body, wall = post(url + route,
+                                          {"type": "string", **fields})
+            check(status == 200, f"shard-built {name}: HTTP {status}")
+            got.append((body, wall))
+        check(got[0][0] == got[1][0], f"shard-built {name} bytes != the "
+              "global build's")
+        print(f"shard-built {n_proteins} {name}: {len(got[1][0])} bytes == "
+              f"global build on SearchEngine; first walls {got[0][1]} s "
+              f"(global) / {got[1][1]} s (shard-built) [{card}]")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -943,6 +1157,13 @@ def main() -> int:
     del engine
     cold_pass(art, device, reqs, bodies, card)
     phase("cold")
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    shard_launches = shard_phase(art, reqs, bodies, queries, card, cards)
+    phase("shard")
+    dryrun_phase(cards)
+    phase("dryrun")
+    shard_built_phase(min(args.proteins, 100_000), card, cards)
+    phase("shard_built")
     print(f"peak device memory over the run: "
           f"{torch.cuda.max_memory_allocated(device)} bytes [{card}]")
     imported = [m for m in sys.modules
@@ -951,11 +1172,17 @@ def main() -> int:
     print(f"phases (s): {json.dumps(phases)}; total "
           f"{time.perf_counter() - t_run} s")
 
+    def sharded(name):
+        return {r: shard_launches[r][name] for r in ("R2", "R5")}
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": "kaamer_tpu_torch/csrc/swalign.cu", "replaces": replaces,
-         "launches": launches[name], **kern}
-        for name, replaces in KERNELS] + probe_rows}))
+         "launches": launches[name], "sharded_launches": sharded(name),
+         **kern}
+        for name, replaces in KERNELS] + [
+        {**row, "sharded_launches": sharded(row["name"].split()[1])}
+        for row in probe_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

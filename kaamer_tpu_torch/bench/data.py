@@ -35,13 +35,15 @@ CACHE_ROOT = os.environ.get(
 AA = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
 
 
-def build_skewed_db(path: str, n_proteins: int, seed: int = 77) -> None:
+def build_skewed_db(path: str, n_proteins: int, seed: int = 77,
+                    n_shards: int = 0) -> None:
     """Domain-skewed synthetic: each protein concatenates 1-3 library
     domains (popularity ~ 1/(rank+5): the most popular domain appears in a
     few percent of all proteins) with random linkers.  Consecutive k-mers of
     a shared domain resolve to one postings set whose length scales with the
     domain's popularity -- power-law postings, shared k-mer families, cap
-    growth, and host-fallback outliers all get exercised."""
+    growth, and host-fallback outliers all get exercised.  n_shards > 1
+    builds the same proteins as a sharded index (index_db)."""
     rng = np.random.default_rng(seed)
     D = max(64, n_proteins // 50)
     dom_seqs = [
@@ -69,7 +71,7 @@ def build_skewed_db(path: str, n_proteins: int, seed: int = 77) -> None:
             o, l = int(link_off[i, 3]), int(link_len[i, 3])
             parts.append(pool[o : o + l + 20])
             f.write(f">S{i:07d} skewed\n{''.join(parts)}\n")
-    build_db(path, fasta, "fasta")
+    build_db(path, fasta, "fasta", n_shards=n_shards)
     os.remove(fasta)
 
 

@@ -1,7 +1,9 @@
 """kaamer-db for the torch port (kaamer_tpu/cli.py:kaamer_db_main).
 
   python -m kaamer_tpu_torch.cli -server -d DB [-p PORT] [-device cuda]
+                                  [-shards N]
   python -m kaamer_tpu_torch.cli -make -i proteins.fasta -f fasta -d DB
+                                  [-shards N]
 
 -make builds the database with the port's index.build.build_db (the
 artifact is byte for byte the JAX package's).
@@ -22,6 +24,11 @@ def _db_parser() -> argparse.ArgumentParser:
     p.add_argument("-device", default="cuda",
                    help="torch device the server runs on (cuda, cuda:1, cpu)")
     p.add_argument("-tmp", default="", help="tmp folder for query import")
+    p.add_argument("-shards", type=int, default=0,
+                   help="index sharding: with -server, serve from an index "
+                        "sharded over N devices; with -make, BUILD a "
+                        "per-shard index (required past 2^31 postings) "
+                        "(0 = single-device)")
     p.add_argument("-i", default="", help="input file")
     p.add_argument("-f", default="", help="input format (fasta|tsv|embl|gbk|genbank)")
     p.add_argument("-d", default="", help="database path")
@@ -36,7 +43,7 @@ def kaamer_db_main(argv=None) -> int:
             return 1
         from .server.app import serve
 
-        serve(args.d, args.p, args.device, args.tmp)
+        serve(args.d, args.p, args.device, args.tmp, n_shards=args.shards)
         return 0
     if args.make_db:
         if not args.d or not args.i or not args.f:
@@ -44,7 +51,8 @@ def kaamer_db_main(argv=None) -> int:
             return 1
         from .index.build import build_db
 
-        build_db(args.d, args.i, args.f, progress=True)
+        build_db(args.d, args.i, args.f, progress=True,
+                 n_shards=args.shards)
         return 0
     _db_parser().print_help()
     return 1

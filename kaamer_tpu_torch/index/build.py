@@ -1,6 +1,6 @@
 """Database build: makedb + indexdb fused into a sort-based pipeline
 (the port's copy of kaamer_tpu/index/build.py; same artifact, byte for
-byte).  Sharded index builds (n_shards > 1) are not ported yet.
+byte).
 
 The reference builds its database by streaming (kmer -> protein_id) inserts
 into a multi-version LSM tree (makedb/inputFASTA.go:245-248) and then runs a
@@ -238,9 +238,8 @@ def build_db(
     progress: bool = False,
     n_shards: int = 0,
 ) -> None:
-    """makedb equivalent (reference makedb.go:33-82).  n_shards > 1 (a
-    sharded index) raises NotImplementedError (see index_db)."""
-    _check_unsharded(n_shards)
+    """makedb equivalent (reference makedb.go:33-82).  n_shards > 1 emits a
+    sharded index (see index_db) for databases beyond MAX_POSTINGS."""
     input_fmt = input_fmt.lower()
     if input_fmt not in PARSERS:
         raise ValueError(f"Input format unrecognized: {input_fmt}")
@@ -433,13 +432,6 @@ def _group_end(pairs: np.ndarray, j: int, n: int) -> int:
     return n
 
 
-def _check_unsharded(n_shards: int) -> None:
-    if n_shards > 1:
-        raise NotImplementedError(
-            "sharded index builds (n_shards > 1) are not ported yet "
-            "(ROADMAP Queue 1 item 10)")
-
-
 def index_db(db_path: str, progress: bool = False,
              chunk_pairs: int = 0, n_shards: int = 0) -> None:
     """indexdb equivalent (reference indexdb.go:34-66): turn the sorted pair
@@ -456,13 +448,19 @@ def index_db(db_path: str, progress: bool = False,
     plus the O(unique-kmers) key/value arrays the final hash table needs
     anyway.
 
-    n_shards > 1 (kaamer_tpu's sharded index) raises NotImplementedError.
+    n_shards > 1 emits a SHARDED index -- per-shard cuckoo tables, postings
+    and set offsets under <db>/shardNN/, each with shard-LOCAL uint32 slice
+    starts -- routed by set identity (parallel/mesh.shard_owner semantics:
+    set routing keeps query k-mer runs whole on their owner shard).  This is
+    the only way past MAX_POSTINGS: every shard is its own uint32-addressed
+    postings space, so a database is buildable and servable as long as each
+    SHARD stays under the cap.  Sharded artifacts are served by
+    parallel.dist.ShardedSearchEngine on an n_shards-wide mesh.
 
     Writes the index files in place next to the untouched protein columns
     (the reference likewise swaps in a new kmer_store and leaves the protein
     store alone, indexdb.go:53-55) -- re-materializing the columns here
     would defeat the out-of-core build."""
-    _check_unsharded(n_shards)
     db = artifact.load_db(db_path, mmap=True)
     if db.indexed:
         raise ValueError(f"{db_path} is already indexed")
@@ -472,59 +470,127 @@ def index_db(db_path: str, progress: bool = False,
     pairs = db.pairs
     n = pairs.shape[0]
     chunk = chunk_pairs or max(1 << 20, _spill_budget() // 8)
+    S = max(int(n_shards), 1)
 
-    uk_chunks: List[np.ndarray] = []
-    st_chunks: List[np.ndarray] = []
-    len_chunks: List[np.ndarray] = []
-    posts_w = _NpyStreamWriter(os.path.join(db_path, "postings.npy.tmp"),
-                               "<u4")
-    offs_w = _NpyStreamWriter(os.path.join(db_path, "set_offsets.npy.tmp"),
-                              "<u8")
-    offs_w.write(np.zeros(1, dtype=np.uint64))
+    from ..parallel.mesh import shard_owner, split_set_mask
+
+    # per-shard accumulation (S == 1 is the plain global artifact)
+    uk_chunks: List[List[np.ndarray]] = [[] for _ in range(S)]
+    st_chunks: List[List[np.ndarray]] = [[] for _ in range(S)]
+    len_chunks: List[List[np.ndarray]] = [[] for _ in range(S)]
+    if S == 1:
+        dirs = [db_path]
+    else:
+        dirs = [os.path.join(db_path, f"shard{s:02d}") for s in range(S)]
+        for d in dirs:
+            os.makedirs(d, exist_ok=True)
+    posts_w = [_NpyStreamWriter(os.path.join(d, "postings.npy.tmp"), "<u4")
+               for d in dirs]
+    offs_w = [_NpyStreamWriter(os.path.join(d, "set_offsets.npy.tmp"), "<u8")
+              for d in dirs]
+    for w in offs_w:
+        w.write(np.zeros(1, dtype=np.uint64))
     set_base = 0
-    post_base = 0
+    post_base = [0] * S
     i = 0
     while i < n:
         j = min(n, i + chunk)
         if j < n:
             j = _group_end(pairs, j, n)
         uk, sid, so, post = dedup_sets(np.asarray(pairs[i:j]))
+        n_sets = so.shape[0] - 1
         sid64 = sid.astype(np.int64)
-        uk_chunks.append(uk)
-        # the cuckoo table stores each k-mer's (start, len) postings
-        # slice inline (hashtable.py layout), so resolve chunk-local set
-        # ids to global slice coordinates here
-        st_chunks.append((so[sid64] + np.uint64(post_base)).astype(np.uint32))
-        len_chunks.append((so[sid64 + 1] - so[sid64]).astype(np.uint32))
-        offs_w.write(so[1:] + np.uint64(post_base))
-        posts_w.write(post)
-        post_base += post.shape[0]
-        set_base += so.shape[0] - 1
+        so64 = so.astype(np.int64)
+        if S == 1:
+            set_owner = split = None
+        else:
+            # route each SET (all its k-mers and postings) to one shard --
+            # except long sets, which split contiguously across ALL shards
+            # for expansion load balance (mesh.split_set_mask; the serving
+            # layout in mesh.shard_index_arrays applies the same rule, and
+            # tests assert the two layouts are bit-equal)
+            set_owner = shard_owner(
+                (set_base + np.arange(n_sets)).astype(np.uint32), S)
+            split = split_set_mask(so64[1:] - so64[:-1], S)
+        for s in range(S):
+            if S == 1:
+                uk_s, sid_s = uk, sid64
+                so_s, post_s = so, post
+            else:
+                sel_sets = split | (set_owner == s)
+                sets_s = np.flatnonzero(sel_sets).astype(np.int64)
+                ls_lens = so64[sets_s + 1] - so64[sets_s]
+                ls_split = split[sets_s]
+                lo = so64[sets_s] + np.where(ls_split, ls_lens * s // S, 0)
+                hi = so64[sets_s] + np.where(
+                    ls_split, ls_lens * (s + 1) // S, ls_lens)
+                lens_s = hi - lo
+                ksel = sel_sets[sid64]
+                uk_s = uk[ksel]
+                # chunk-set id -> shard-local rank (sets_s is sorted)
+                sid_s = np.searchsorted(sets_s, sid64[ksel])
+                so_s = np.zeros(sets_s.size + 1, dtype=np.uint64)
+                np.cumsum(lens_s.astype(np.uint64), out=so_s[1:])
+                total = int(so_s[-1])
+                src = (np.repeat(lo, lens_s)
+                       + np.arange(total, dtype=np.int64)
+                       - np.repeat(so_s[:-1].astype(np.int64), lens_s))
+                post_s = post[src]
+            uk_chunks[s].append(uk_s)
+            # the cuckoo table stores each k-mer's (start, len) postings
+            # slice inline (hashtable.py layout), so resolve chunk-local set
+            # ids to (shard-)global slice coordinates here
+            st_chunks[s].append(
+                (so_s[sid_s] + np.uint64(post_base[s])).astype(np.uint32))
+            len_chunks[s].append((so_s[sid_s + 1] - so_s[sid_s]).astype(np.uint32))
+            offs_w[s].write(so_s[1:] + np.uint64(post_base[s]))
+            posts_w[s].write(post_s)
+            post_base[s] += post_s.shape[0]
+        set_base += n_sets
         i = j
         if progress and n:
             print(f"# indexed {i * 100 // n}% of pairs")
-    posts_w.close()
-    offs_w.close()
-    if post_base >= MAX_POSTINGS:
+    for w in posts_w:
+        w.close()
+    for w in offs_w:
+        w.close()
+    if max(post_base) >= MAX_POSTINGS:
         raise ValueError(
+            f"postings larger than {MAX_POSTINGS} per index; rebuild with "
+            f"more shards (index_db n_shards > {S})" if S > 1 else
             f"postings larger than {MAX_POSTINGS} need a sharded index "
             f"(index_db n_shards > 1)")
 
+    # per-shard cuckoo tables share one row-count log2 so the serving mesh
+    # can stack them shape-identically (parallel/mesh.py)
     def _cat(chunks):
-        return np.concatenate(chunks) if chunks else np.empty(0, np.uint32)
+        return [np.concatenate(c) if c else np.empty(0, np.uint32)
+                for c in chunks]
 
-    table = build_table(_cat(uk_chunks), _cat(st_chunks), _cat(len_chunks))
-    del uk_chunks, st_chunks, len_chunks
+    uk_all, st_all, ln_all = _cat(uk_chunks), _cat(st_chunks), _cat(len_chunks)
+    for lst in (uk_chunks, st_chunks, len_chunks):
+        lst.clear()
+    common_t = 0
+    while True:
+        tables = [build_table(uk_all[s], st_all[s], ln_all[s],
+                              min_log2=common_t) for s in range(S)]
+        t_max = max(t.log2 for t in tables)
+        common_t = t_max
+        if all(t.log2 == t_max for t in tables):
+            break
+    del uk_all, st_all, ln_all
 
     db.stats.NumberOfKCombSets = set_base
     db.settings.DatabaseIndexed = True
 
-    np.save(os.path.join(db_path, "hash_table.npy"), table.table)
-    for name in ("postings.npy", "set_offsets.npy"):
-        os.replace(os.path.join(db_path, name + ".tmp"),
-                   os.path.join(db_path, name))
+    for s, d in enumerate(dirs):
+        np.save(os.path.join(d, "hash_table.npy"), tables[s].table)
+        for name in ("postings.npy", "set_offsets.npy"):
+            os.replace(os.path.join(d, name + ".tmp"),
+                       os.path.join(d, name))
     artifact.write_meta(db_path, db.stats, db.settings, indexed=True,
-                        hash_log2=table.log2)
+                        hash_log2=common_t,
+                        index_shards=S if S > 1 else 0)
     pairs_file = os.path.join(db_path, "pairs.npy")
     db.pairs = None  # drop the memmap before unlinking
     if os.path.exists(pairs_file):

@@ -73,7 +73,7 @@ def select_hot_sets(set_offsets: np.ndarray, num_proteins: int,
     return np.sort(hot_starts).astype(np.int32), thresh, P_pad
 
 
-def _membership_pairs(postings: np.ndarray, set_offsets: np.ndarray,
+def membership_pairs(postings: np.ndarray, set_offsets: np.ndarray,
                       hot_starts: np.ndarray):
     """(hot set index, protein row) of every hot postings entry."""
     ends = set_offsets.astype(np.int64)
@@ -91,7 +91,7 @@ def build_membership_np(postings: np.ndarray, set_offsets: np.ndarray,
     """hotset.py:build_membership_np: M float32[H, P_pad] on the host,
     M[h, p] = 1 iff protein row p is in hot set h."""
     M = np.zeros((hot_starts.shape[0], P_pad), dtype=np.float32)
-    hh, rr = _membership_pairs(postings, set_offsets, hot_starts)
+    hh, rr = membership_pairs(postings, set_offsets, hot_starts)
     M[hh, rr] = 1.0
     return M
 
@@ -103,7 +103,7 @@ def build_membership(postings: np.ndarray, set_offsets: np.ndarray,
     M_F32_BYTES, else bfloat16 (0/1 is exact in both)."""
     H = int(hot_starts.shape[0])
     dtype = torch.float32 if H * P_pad * 4 <= M_F32_BYTES else torch.bfloat16
-    hh, rr = _membership_pairs(postings, set_offsets, hot_starts)
+    hh, rr = membership_pairs(postings, set_offsets, hot_starts)
     M = torch.zeros((H, P_pad), dtype=dtype, device=device)
     M.index_put_((torch.from_numpy(hh).to(device),
                   torch.from_numpy(rr).to(device)),

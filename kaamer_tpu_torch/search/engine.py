@@ -632,7 +632,8 @@ class SearchEngine(PositionBitmapServing):
         if getattr(art, "index_shards", 0):
             raise ValueError(
                 f"this database was built with {art.index_shards} index "
-                f"shards; sharded serving is not ported yet")
+                f"shards; serve it with parallel.dist.ShardedSearchEngine "
+                f"on a {art.index_shards}-shard mesh")
         so = np.asarray(art.set_offsets)
         if so.size and int(so[-1]) >= 2**31:
             raise ValueError("postings larger than 2^31 need a sharded index")

@@ -24,6 +24,8 @@ import urllib.parse
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import torch
+
 from ..index.artifact import load_db
 from ..search.engine import SearchEngine
 from ..search.options import NUCLEOTIDE, PROTEIN, READS, SearchOptions
@@ -233,15 +235,50 @@ def make_server(engine: SearchEngine, port: int = 8321, tmp_folder: str = "",
     return ThreadingHTTPServer((host, port), make_handler(engine, tmp_folder))
 
 
-def serve(db_path: str, port: int = 8321, device="cuda",
-          tmp_folder: str = "") -> None:
-    """Load a database onto `device` and serve it until interrupted."""
+def load_engine(db_path: str, device="cuda", n_shards: int = 0):
+    """Open a database as a search engine on `device`
+    (kaamer_tpu/server/app.py:282-299).  n_shards > 1 serves it from an
+    index sharded over a (dp, shard) mesh (parallel/dist.py): of every
+    card for device "cuda", else of `device` repeated n_shards times.  A
+    shard-built artifact is served sharded whatever n_shards says."""
     print(" + Opening kAAmer Database.. ", end="", flush=True)
     t0 = time.time()
-    engine = SearchEngine(load_db(db_path), device)
+    art = load_db(db_path)
+    if getattr(art, "index_shards", 0) and n_shards <= 1:
+        # shard-BUILT artifacts (index_db n_shards > 1) have no global
+        # index; they can only be served sharded, so auto-select it
+        n_shards = art.index_shards
+        print(f"[shard-built index: serving sharded x{n_shards}] ",
+              end="", flush=True)
+    if n_shards > 1:
+        from ..parallel.dist import ShardedSearchEngine, global_mesh
+
+        device = torch.device(device)
+        devices = None if device == torch.device("cuda") else (
+            [device] * n_shards)
+        engine = ShardedSearchEngine(art, mesh=global_mesh(n_shards,
+                                                           devices))
+        # global_mesh reduces the shard count to a divisor of the device
+        # count; report what actually happened, not what was asked for
+        if engine.n_shards != n_shards:
+            print(f"[sharded x{engine.n_shards}; {n_shards} requested but "
+                  f"only divisors of the device count are possible] ",
+                  end="", flush=True)
+        else:
+            print(f"[sharded x{engine.n_shards}] ", end="", flush=True)
+    else:
+        engine = SearchEngine(art, device)
     dt = int(time.time() - t0)
     print(f"done [{dt // 60:02d}m{dt % 60:02d}s] on {engine.device}")
-    httpd = make_server(engine, port, tmp_folder)
+    return engine
+
+
+def serve(db_path: str, port: int = 8321, device="cuda",
+          tmp_folder: str = "", n_shards: int = 0) -> None:
+    """Load a database onto `device` (load_engine) and serve it until
+    interrupted."""
+    httpd = make_server(load_engine(db_path, device, n_shards), port,
+                        tmp_folder)
     print(f" + kaamer-tpu-torch server listening on port {port}")
     try:
         httpd.serve_forever()

@@ -40,12 +40,25 @@ def upload_all(arrays: Sequence[np.ndarray], device) -> List[torch.Tensor]:
     would wait for every kernel already queued on the stream.  torch's
     caching host allocator keeps the pinned buffer alive until the copy
     has run.  On the CPU each tensor shares its array's memory."""
+    return upload_each(arrays, [device])[0]
+
+
+def upload_each(arrays: Sequence[np.ndarray],
+                devices) -> List[List[torch.Tensor]]:
+    """upload_all to each of `devices`: one list of tensors a device, the
+    CUDA ones all copied from one pinned staging buffer."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
-    device = torch.device(device)
-    if device.type != "cuda":
-        return [torch.from_numpy(a).to(device) for a in arrays]
-    staged, starts = _stage(arrays, pin=True)
-    return _views(staged.to(device, non_blocking=True), arrays, starts)
+    staged = None
+    out = []
+    for device in map(torch.device, devices):
+        if device.type != "cuda":
+            out.append([torch.from_numpy(a).to(device) for a in arrays])
+            continue
+        if staged is None:
+            staged, starts = _stage(arrays, pin=True)
+        out.append(_views(staged.to(device, non_blocking=True), arrays,
+                          starts))
+    return out
 
 
 def upload(a: np.ndarray, device) -> torch.Tensor:

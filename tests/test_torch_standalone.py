@@ -48,7 +48,8 @@ def test_import_every_module_loads_no_jax_package():
     assert len(mods) > 20 and {
         "kaamer_tpu_torch.index.build", "kaamer_tpu_torch.search.orf",
         "kaamer_tpu_torch.search.gcode", "kaamer_tpu_torch.upload",
-        "kaamer_tpu_torch.bench.serving"} <= set(mods)
+        "kaamer_tpu_torch.bench.serving", "kaamer_tpu_torch.parallel.dist",
+        "kaamer_tpu_torch.parallel.comm"} <= set(mods)
     files = {os.path.relpath(p, REPO) for p in _port_files()}
     assert {"kaamer_tpu_torch/search/orf.py",
             "kaamer_tpu_torch/search/gcode.py"} <= files
@@ -84,11 +85,17 @@ def test_no_forbidden_import_in_source(path):
 
 
 def _same_tree(a, b):
-    """Every file of artifact directory a equals b's, byte for byte."""
+    """Every file of artifact directory a equals b's, byte for byte, its
+    subdirectories (the shards of a sharded build) included."""
     names = sorted(os.listdir(a))
-    assert names == sorted(os.listdir(b)) and "hash_table.npy" in names
-    match, mismatch, errors = filecmp.cmpfiles(a, b, names, shallow=False)
+    assert names == sorted(os.listdir(b))
+    dirs = [n for n in names if os.path.isdir(os.path.join(a, n))]
+    files = [n for n in names if n not in dirs]
+    assert "hash_table.npy" in files or dirs
+    match, mismatch, errors = filecmp.cmpfiles(a, b, files, shallow=False)
     assert not mismatch and not errors, (mismatch, errors)
+    for d in dirs:
+        _same_tree(os.path.join(a, d), os.path.join(b, d))
 
 
 @pytest.mark.parametrize("fmt", ["fasta", "tsv"])
@@ -123,11 +130,24 @@ def test_build_skewed_db_bytes_equal_bench(tmp_path):
     assert data.make_queries(art, np.random.default_rng(5), 20) == want
 
 
-def test_sharded_build_not_ported(tmp_path):
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_build_bytes_equal_jax(tmp_path, n_shards):
+    """build_db(n_shards) writes the JAX package's sharded artifact: one
+    shardNN directory a shard, every file equal."""
+    rng = np.random.default_rng(23)
+    dom = "".join(rng.choice(list(AA), size=40))  # a set long enough to split
     src = tmp_path / "in.fasta"
-    src.write_text(">P1 p\nMKTAYIAKQRQISFVKSHF\n")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        build_db(str(tmp_path / "db"), str(src), "fasta", n_shards=2)
+    with open(src, "w") as f:
+        for i in range(120):
+            s = "".join(rng.choice(list(AA), size=int(rng.integers(20, 90))))
+            f.write(f">P{i} protein {i}\n{dom if i % 2 else ''}{s}\n")
+    for d, build in (("a", jax_build_db), ("b", build_db)):
+        os.makedirs(tmp_path / d)
+        build(str(tmp_path / d / "db"), str(src), "fasta", n_shards=n_shards)
+    assert sorted(n for n in os.listdir(tmp_path / "b" / "db")
+                  if n.startswith("shard")) == [f"shard{s:02d}"
+                                                for s in range(n_shards)]
+    _same_tree(tmp_path / "a" / "db", tmp_path / "b" / "db")
 
 
 def test_host_codec_packers_equal_jax():
