@@ -52,7 +52,18 @@ bench.py: the database comes from the port's own generator
      (2, 2) grid of the cards, repeated as needed;
  12. a shard-built (2-shard) skewed database of 100,000 proteins (or
      --proteins, if fewer): R1 and R3 bytes equal its global build's on
-     SearchEngine.
+     SearchEngine;
+ 13. lifecycle phase, at the same size, each step a subprocess of the
+     port's CLI (python -m kaamer_tpu_torch.cli db|search ...): two
+     -noindex halves of the same FASTA, -merge, -index, -backup, -restore
+     and -gc, the restored artifact byte-equal to the global build;
+     `db -server` on the restored database on the card, queried by `cli
+     search` (R2 with -aln in path and file mode, R3 as JSON with
+     positions, R5 as -t nt), each body equal to SearchEngine's on the
+     global build; GET /, /web/ and /docs/README.md; the bench harness's
+     opendb and a traced search (the trace must hold a CUDA kernel); and
+     align_batch on R2's 256 pairs against the plain SW, its sw_align
+     launches counted.
 
 Prints the card (nvidia-smi name and power limit), per-request and
 per-phase times, one JSON line of kernel results (each with its bound: the
@@ -66,10 +77,14 @@ raises (exit code != 0).
 from __future__ import annotations
 
 import argparse
+import filecmp
+import http.client
 import itertools
 import json
 import multiprocessing
 import os
+import socket
+import subprocess
 import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
@@ -79,6 +94,7 @@ import numpy as np
 from kaamer_tpu_torch.bench.serving import (Served, card_line, post,
                                             smoke_requests)
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 AA = "ACDEFGHIKLMNPQRSTVWY"
 KMER_ALPHABET = "ACDEFGHIKLMNPQRSTUVWY"  # the 21-letter 7-mer alphabet
 KMER_SIZE = 7
@@ -1065,6 +1081,260 @@ def shard_built_phase(n_proteins: int, card: str, cards) -> None:
 
 
 # ---------------------------------------------------------------------------
+# lifecycle phase
+# ---------------------------------------------------------------------------
+
+
+def run_module(module: str, args, what: str, card: str) -> str:
+    """`python -m module args` in a subprocess from the repo's root; fails
+    the run unless it exits 0.  Prints its wall; returns its stdout."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *map(str, args)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    print(f"lifecycle {what}: wall {wall} s [{card}]")
+    return proc.stdout
+
+
+def same_artifact(got: str, want: str) -> list:
+    """Every file of the artifact got equals want's, byte for byte, but
+    meta.json, whose settings may differ in Name (a merge names the
+    merged database after its first part, as the JAX package's does) and
+    CreationDate (the day each was built): its stats and the rest of its
+    settings must be equal.  Returns the files compared."""
+    names = sorted(os.listdir(got))
+    check(names == sorted(os.listdir(want)),
+          f"restored files {names} != {sorted(os.listdir(want))}")
+    for name in names:
+        if name == "meta.json":
+            metas = [json.load(open(os.path.join(d, name)))
+                     for d in (got, want)]
+            for m in metas:
+                for key in ("Name", "CreationDate"):
+                    m["settings"].pop(key, None)
+            check(metas[0] == metas[1], f"meta.json {metas[0]} != {metas[1]}")
+        else:
+            check(filecmp.cmp(os.path.join(got, name),
+                              os.path.join(want, name), shallow=False),
+                  f"restored {name} != the global build's")
+    return names
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def http_get(port: int, path: str):
+    """(status, Location, body) of GET path on this machine, redirects not
+    followed."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Location"), resp.read()
+    finally:
+        conn.close()
+
+
+def wait_listening(proc, port: int, log: str, timeout: float = 600) -> float:
+    """Seconds until the server answers /api/dbinfo; fails if it exits or
+    the timeout passes first."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        check(proc.poll() is None, f"the CLI server exited "
+              f"{proc.returncode}: {open(log).read()[-4000:]}")
+        try:
+            if http_get(port, "/api/dbinfo")[0] == 200:
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.5)
+    check(False, f"the CLI server did not answer in {timeout} s")
+
+
+def trace_kernels(path: str) -> list:
+    """The names of the CUDA kernel events of a torch.profiler Chrome
+    trace."""
+    events = json.load(open(path))["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+def lifecycle_phase(n_proteins: int, card: str, device) -> int:
+    """The database lifecycle through the port's CLI, each step a
+    subprocess: two -noindex halves of the seed-77 skewed FASTA, -merge,
+    -index, -backup, -restore and -gc; the restored artifact against the
+    global build of the same FASTA (shard_built_phase's); the restored
+    database served by `cli db -server` on the card and queried by `cli
+    search` (R2 -aln in path and file mode, R3's queries as JSON with
+    positions, R5's contigs as -t nt with R5's options), each body equal
+    to the same request to SearchEngine on the global build; the static
+    routes; the harness's opendb and a traced search on the card; and
+    align_batch on R2's pairs against the plain SW.  Returns align_batch's
+    sw_align launches."""
+    import shutil
+
+    from kaamer_tpu_torch.bench import data
+    from kaamer_tpu_torch.bench.harness import TRACE_FILE
+    from kaamer_tpu_torch.ops import swalign as sw
+    from kaamer_tpu_torch.ops import swalign_cuda as swc
+    from kaamer_tpu_torch.search.engine import SearchEngine
+
+    root = os.path.join(data.CACHE_ROOT, "lifecycle")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "tmp"))
+    fasta = os.path.join(root, f"skew_{n_proteins}.fasta")
+    data.write_skewed_fasta(fasta, n_proteins, 77)
+    half = n_proteins // 2
+
+    def db(what, *args):
+        return run_module("kaamer_tpu_torch.cli", ["db", *args], what, card)
+
+    make = ["-make", "-i", fasta, "-f", "fasta", "-noindex"]
+    p = {d: os.path.join(root, d) for d in ("parts", "merged", "bkp", "rst")}
+    db("-make first half", *make, "-d", os.path.join(p["parts"], "a"),
+       "-offset", 0, "-length", half)
+    db("-make second half", *make, "-d", os.path.join(p["parts"], "b"),
+       "-offset", half)
+    db("-merge", "-merge", "-dbs", p["parts"], "-o", p["merged"])
+    db("-index", "-index", "-d", p["merged"])
+    db("-backup", "-backup", "-d", p["merged"], "-o", p["bkp"])
+    db("-restore", "-restore", "-d", p["bkp"], "-o", p["rst"])
+    out = db("-gc", "-gc", "-d", p["rst"])
+    check("# GC done (0 bytes reclaimed" in out, f"-gc printed {out!r}")
+    g_path = os.path.join(data.CACHE_ROOT, f"skew_{n_proteins}")
+    g = data.ensure_db(g_path, data.build_skewed_db, n_proteins, 77)
+    names = same_artifact(p["rst"], g_path)
+    print(f"lifecycle: the restored artifact's {len(names)} files == the "
+          f"global build's, byte for byte, but meta.json's settings Name "
+          f"and CreationDate (its stats and other settings equal)")
+
+    queries, reqs = smoke_requests(g, np.random.default_rng(2026))
+    req = {name: (route, fields) for name, route, fields, _ in reqs}
+    for name in ("R2", "R3", "R5"):
+        with open(os.path.join(root, f"{name}.fasta"), "w") as f:
+            f.write(req[name][1]["sequence"])
+
+    port = free_port()
+    log = os.path.join(root, "server.log")
+    with open(log, "w") as logf:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "kaamer_tpu_torch.cli", "db", "-server",
+             "-d", p["rst"], "-p", str(port), "-tmp",
+             os.path.join(root, "tmp")],
+            cwd=REPO, stdout=logf, stderr=subprocess.STDOUT)
+    try:
+        ready = wait_listening(server, port, log)
+        print(f"lifecycle `cli db -server` on the restored database: "
+              f"answering after {ready} s [{card}]")
+        engine = SearchEngine(g, device)
+        searches = (
+            ("R2 -aln, path mode", "R2", "localhost",
+             ["-t", "prot", "-aln"]),
+            ("R2 -aln, file mode", "R2", "127.0.0.2",
+             ["-t", "prot", "-aln"]),
+            ("R3 -fmt json -pos", "R3", "localhost",
+             ["-t", "prot", "-fmt", "json", "-pos"]),
+            ("R5 -t nt -fmt json -pos -aln", "R5", "localhost",
+             ["-t", "nt", "-fmt", "json", "-pos", "-aln"]),
+        )
+        with Served(engine) as url:
+            want = {}
+            for name in ("R2", "R3", "R5"):
+                route, fields = req[name]
+                status, want[name], _ = post(url + route,
+                                             {"type": "string", **fields})
+                check(status == 200, f"in-process {name}: HTTP {status}")
+        # the restored server's first request, then the same again (warm)
+        route, fields = req["R1"]
+        walls = []
+        for _ in range(2):
+            status, body, wall = post(
+                f"http://127.0.0.1:{port}/api/search/{route}",
+                {"type": "string", **fields})
+            check(status == 200 and body.count(b"\n") > 2048,
+                  f"R1 to the CLI server: HTTP {status}, {len(body)} bytes")
+            walls.append(wall)
+        print(f"lifecycle R1 to the CLI server: first {walls[0]} s, warm "
+              f"{walls[1]} s [{card}]")
+        for what, name, host, opts in searches:
+            out_path = os.path.join(root, f"{name}.out")
+            run_module("kaamer_tpu_torch.cli", [
+                "search", "-i", os.path.join(root, f"{name}.fasta"),
+                "-h", f"http://{host}:{port}", "-o", out_path, *opts],
+                f"`cli search` {what}", card)
+            got = open(out_path, "rb").read()
+            check(got == want[name], f"`cli search` {what}: {len(got)} "
+                  f"bytes != SearchEngine on the global build's "
+                  f"{len(want[name])}")
+            print(f"  {len(got)} bytes == SearchEngine on the global build")
+
+        status, location, body = http_get(port, "/")
+        check(status == 302 and location == "/web/" and body == b"",
+              f"GET /: {status} {location}")
+        for path, rel in (("/web/", "web/public/index.html"),
+                          ("/docs/README.md", "docs/README.md")):
+            status, _, body = http_get(port, path)
+            check(status == 200 and body == open(os.path.join(REPO, rel),
+                                                 "rb").read(),
+                  f"GET {path}: {status}, {len(body)} bytes")
+        print("lifecycle static routes: GET / -> 302 Location /web/; "
+              "/web/ and /docs/README.md -> 200 with the files' bytes")
+    finally:
+        server.terminate()
+        try:
+            server.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
+
+    harness = "kaamer_tpu_torch.bench.harness"
+    out = run_module(harness, ["-func", "opendb", "-d", p["rst"],
+                               "-monitor", os.path.join(root, "opendb.out")],
+                     "harness -func opendb", card)
+    print("  " + "; ".join(ln for ln in out.splitlines()
+                           if ln.startswith(("opendb", "MaxRSS"))))
+    trace_dir = os.path.join(root, "trace")
+    out = run_module(harness, ["-func", "search", "-d", p["rst"], "-i",
+                               os.path.join(root, "R2.fasta"), "-trace",
+                               trace_dir, "-monitor",
+                               os.path.join(root, "search.out")],
+                     "harness -func search -trace (R2's queries)", card)
+    kernels = trace_kernels(os.path.join(trace_dir, TRACE_FILE))
+    check(kernels, "the harness trace holds no CUDA kernel event")
+    print("  " + "; ".join(ln for ln in out.splitlines()
+                           if ln.startswith(("search", "MaxRSS"))))
+    print(f"  trace: {len(kernels)} CUDA kernel events, "
+          f"{len(set(kernels))} kernels")
+
+    # align_batch on R2's pairs: each of the 256 queries with its top hit
+    seqs = queries[:256]
+    top = engine.count_batch(seqs, [len(s) - 6 for s in seqs], k=1)
+    pairs = [(s, g.sequence(int(qc.hit_rows[0])))
+             for s, qc in zip(seqs, top) if len(qc.hit_rows)]
+    swc.reset_launches()
+    t0 = time.perf_counter()
+    got = sw.align_batch(pairs, g.stats, device=device)
+    wall = time.perf_counter() - t0
+    n_launch = swc.launches["sw_align"]
+    check(n_launch > 0, "align_batch never launched sw_align")
+    plain = plain_alignments(g, pairs, device)
+    check([a.to_json_obj() for a in got] == [a.to_json_obj() for a in plain],
+          "align_batch != the plain SW versions")
+    print(f"lifecycle align_batch: {len(pairs)} pairs (R2's queries and "
+          f"their top hits) == plain SW on the card; {n_launch} sw_align "
+          f"launches; wall {wall} s [{card}]")
+    del engine
+    return n_launch
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1164,6 +1434,8 @@ def main() -> int:
     phase("dryrun")
     shard_built_phase(min(args.proteins, 100_000), card, cards)
     phase("shard_built")
+    aln_launches = lifecycle_phase(min(args.proteins, 100_000), card, device)
+    phase("lifecycle")
     print(f"peak device memory over the run: "
           f"{torch.cuda.max_memory_allocated(device)} bytes [{card}]")
     imported = [m for m in sys.modules
@@ -1179,7 +1451,7 @@ def main() -> int:
         {"name": name, "route": "cuda",
          "source": "kaamer_tpu_torch/csrc/swalign.cu", "replaces": replaces,
          "launches": launches[name], "sharded_launches": sharded(name),
-         **kern}
+         "align_batch_launches": aln_launches, **kern}
         for name, replaces in KERNELS] + [
         {**row, "sharded_launches": sharded(row["name"].split()[1])}
         for row in probe_rows]}))

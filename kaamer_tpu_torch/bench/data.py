@@ -35,15 +35,14 @@ CACHE_ROOT = os.environ.get(
 AA = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
 
 
-def build_skewed_db(path: str, n_proteins: int, seed: int = 77,
-                    n_shards: int = 0) -> None:
-    """Domain-skewed synthetic: each protein concatenates 1-3 library
-    domains (popularity ~ 1/(rank+5): the most popular domain appears in a
-    few percent of all proteins) with random linkers.  Consecutive k-mers of
-    a shared domain resolve to one postings set whose length scales with the
-    domain's popularity -- power-law postings, shared k-mer families, cap
-    growth, and host-fallback outliers all get exercised.  n_shards > 1
-    builds the same proteins as a sharded index (index_db)."""
+def write_skewed_fasta(fasta: str, n_proteins: int, seed: int = 77) -> None:
+    """The FASTA build_skewed_db builds from.  Domain-skewed synthetic:
+    each protein concatenates 1-3 library domains (popularity ~
+    1/(rank+5): the most popular domain appears in a few percent of all
+    proteins) with random linkers.  Consecutive k-mers of a shared domain
+    resolve to one postings set whose length scales with the domain's
+    popularity -- power-law postings, shared k-mer families, cap growth,
+    and host-fallback outliers all get exercised."""
     rng = np.random.default_rng(seed)
     D = max(64, n_proteins // 50)
     dom_seqs = [
@@ -60,7 +59,6 @@ def build_skewed_db(path: str, n_proteins: int, seed: int = 77,
     link_off = rng.integers(0, (1 << 22) - 128, size=(n_proteins, 4))
     link_len = rng.integers(8, 40, size=(n_proteins, 4))
 
-    fasta = path + ".fasta"
     with open(fasta, "w") as f:
         for i in range(n_proteins):
             parts = []
@@ -71,6 +69,14 @@ def build_skewed_db(path: str, n_proteins: int, seed: int = 77,
             o, l = int(link_off[i, 3]), int(link_len[i, 3])
             parts.append(pool[o : o + l + 20])
             f.write(f">S{i:07d} skewed\n{''.join(parts)}\n")
+
+
+def build_skewed_db(path: str, n_proteins: int, seed: int = 77,
+                    n_shards: int = 0) -> None:
+    """The seed's skewed database (write_skewed_fasta) at path.  n_shards
+    > 1 builds the same proteins as a sharded index (index_db)."""
+    fasta = path + ".fasta"
+    write_skewed_fasta(fasta, n_proteins, seed)
     build_db(path, fasta, "fasta", n_shards=n_shards)
     os.remove(fasta)
 

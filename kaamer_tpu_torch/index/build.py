@@ -63,7 +63,9 @@ def _spill_budget() -> int:
 
 
 def _kway_merge_u64(spill_files: List[str], out_path: str,
-                    block_elems: int = 1 << 20) -> None:
+                    block_elems: int = 1 << 20,
+                    data_offsets: Optional[List[int]] = None,
+                    row_bases: Optional[List[int]] = None) -> None:
     """Merge sorted uint64 spill files into a .npy at out_path, streaming:
     peak memory is bounded by ~2 * n_files * block_elems * 8 bytes.
 
@@ -72,18 +74,33 @@ def _kway_merge_u64(spill_files: List[str], out_path: str,
     globally mergeable), sort the concatenated cut, append to the output.
     At least one full block is consumed per iteration.  All I/O is buffered
     reads/writes, NOT memmaps -- dirty/resident mapped pages would count
-    against the process RSS and defeat the memory bound."""
-    sizes = [os.path.getsize(f) // 8 for f in spill_files]
+    against the process RSS and defeat the memory bound.
+
+    data_offsets: where each file's values start, in bytes (a .npy file's
+    header length; default 0, raw spill files).  row_bases: added to the
+    low 32 bits (the protein row) of every value of a file as it is read,
+    as a merge of databases rebases each one's rows (index/merge.py); the
+    sum must stay below 2^32, so each file stays sorted."""
+    starts = data_offsets or [0] * len(spill_files)
+    bases = [np.uint64(b) for b in (row_bases or [0] * len(spill_files))]
+    sizes = [(os.path.getsize(f) - o) // 8
+             for f, o in zip(spill_files, starts)]
     total = sum(sizes)
     fhs = [open(f, "rb") for f in spill_files]
+    for fh, o in zip(fhs, starts):
+        fh.seek(o)
     remaining = list(sizes)
     bufs = [np.empty(0, dtype=np.uint64) for _ in fhs]
     offs = [0] * len(fhs)
+    low = np.uint64(0xFFFFFFFF)
 
     def refill(i: int) -> None:
         if offs[i] == bufs[i].shape[0] and remaining[i]:
             n = min(block_elems, remaining[i])
-            bufs[i] = np.fromfile(fhs[i], dtype=np.uint64, count=n)
+            buf = np.fromfile(fhs[i], dtype=np.uint64, count=n)
+            if bases[i]:
+                buf = (buf & ~low) | ((buf & low) + bases[i])
+            bufs[i] = buf
             remaining[i] -= n
             offs[i] = 0
 

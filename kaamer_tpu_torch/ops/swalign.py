@@ -152,6 +152,25 @@ def align_batch_resolve(handle):
             for (q, r), (_, q_ops, r_ops) in zip(pairs, ops)]
 
 
+def align_batch(pairs, db_stats: KStats, sub_matrix: str = "blosum62",
+                gap_open: int = 11, gap_extend: int = 1, *, device):
+    """Align many (query, ref) pairs on `device` under the routing rule
+    (sw_align on a CUDA device, its plain version on the CPU, the host DP
+    for small or long batches); returns a list of AlignmentResult
+    (kaamer_tpu/ops/swalign.py:147)."""
+    return align_batch_resolve(align_batch_dispatch(
+        pairs, db_stats, sub_matrix, gap_open, gap_extend, device=device))
+
+
+def align(query_seq: str, ref_seq: str, db_stats: KStats,
+          sub_matrix: str = "blosum62", gap_open: int = 11,
+          gap_extend: int = 1, *, device) -> AlignmentResult:
+    """One pair's AlignmentResult (kaamer_tpu/ops/swalign.py:125): a batch
+    of one, which the routing rule sends to the host DP."""
+    return align_batch([(query_seq, ref_seq)], db_stats, sub_matrix,
+                       gap_open, gap_extend, device=device)[0]
+
+
 def result_from_ops(
     query_seq: str, ref_seq: str, scores: MatrixScores,
     q_ops, r_ops, db_stats: KStats,

@@ -580,6 +580,16 @@ class PositionBitmapServing:
     (both keep host-side `postings_np` / set-start views and attach device
     bitmaps to QueryCounts when the batch ran with positions=True)."""
 
+    def position_bitmaps(
+        self, qc: "QueryCounts", hit_rows: Sequence[int]
+    ) -> Dict[int, List[bool]]:
+        """Per-hit bitmaps over query k-mer positions (reference
+        StoreMatchPositions, search.go:442-452) as plain bool lists."""
+        return {
+            k: v.tolist()
+            for k, v in self.position_bitmaps_np(qc, hit_rows).items()
+        }
+
     def position_bitmaps_np(
         self, qc: "QueryCounts", hit_rows: Sequence[int]
     ) -> Dict[int, np.ndarray]:

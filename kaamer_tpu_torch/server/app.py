@@ -4,10 +4,15 @@
   POST /api/search/{protein,nucleotide,fastq} -> streamed TSV/JSON, form
                                              fields as the JAX server's
                                              (parse_search_options)
+  GET  /                                  -> 302 /web/
+  GET  /docs/*, /web/*                    -> static, from the repo's docs/
+                                             and web/public/ (when the
+                                             directories exist)
 
-Form parsing, option parsing, the default options and the disconnect
-poller are the JAX server's (kaamer_tpu/server/app.py:42-164), copied
-unchanged; the handler is this module's own.
+Form parsing, option parsing, the default options, the disconnect poller
+and the static file server are the JAX server's
+(kaamer_tpu/server/app.py:42-164,197-215), copied unchanged; the rest of
+the handler is this module's own.
 """
 
 from __future__ import annotations
@@ -164,7 +169,30 @@ def _default_options(seq_type: int) -> SearchOptions:
     )
 
 
-def make_handler(engine: SearchEngine, tmp_folder: str):
+# static file types (kaamer_tpu/server/app.py:208-212)
+CONTENT_TYPES = {
+    ".html": "text/html", ".js": "application/javascript",
+    ".css": "text/css", ".json": "application/json",
+    ".md": "text/markdown",
+}
+
+
+def web_dirs() -> dict:
+    """URL prefix -> directory of the static routes: the repo's docs/ and
+    web/public/, where they exist (kaamer_tpu/server/app.py:304-311)."""
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    dirs = {}
+    docs = os.path.join(repo, "docs")
+    if os.path.isdir(docs):
+        dirs["/docs"] = docs
+    web = os.path.join(repo, "web", "public")
+    if os.path.isdir(web):
+        dirs["/web"] = web
+    return dirs
+
+
+def make_handler(engine: SearchEngine, tmp_folder: str, web_dirs: dict):
     db_stats = engine.art.stats
 
     class Handler(BaseHTTPRequestHandler):
@@ -182,11 +210,32 @@ def make_handler(engine: SearchEngine, tmp_folder: str):
 
         def do_GET(self):
             path = urllib.parse.urlparse(self.path).path
+            if path == "/":
+                self.send_response(302)
+                self.send_header("Location", "/web/")
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
             if path == "/api/dbinfo":
                 self._reply(200, json.dumps(db_stats.to_json_obj()).encode(),
                             "application/json")
                 return
+            for prefix, root in web_dirs.items():
+                if path.startswith(prefix):
+                    return self._serve_static(root, path[len(prefix):])
             self.send_error(404)
+
+        def _serve_static(self, root, rel):
+            rel = rel.lstrip("/") or "index.html"
+            full = os.path.realpath(os.path.join(root, rel))
+            if not full.startswith(os.path.realpath(root)) or not os.path.isfile(full):
+                self.send_error(404)
+                return
+            with open(full, "rb") as f:
+                data = f.read()
+            ext = os.path.splitext(full)[1]
+            self._reply(200, data,
+                        CONTENT_TYPES.get(ext, "application/octet-stream"))
 
         def do_POST(self):
             path = urllib.parse.urlparse(self.path).path
@@ -228,11 +277,12 @@ def make_handler(engine: SearchEngine, tmp_folder: str):
 
 def make_server(engine: SearchEngine, port: int = 8321, tmp_folder: str = "",
                 host: str = "") -> ThreadingHTTPServer:
-    """A threading HTTP server bound to (host, port) serving `engine`
-    (port 0 picks a free port: read server_address)."""
+    """A threading HTTP server bound to (host, port) serving `engine` and
+    the static routes (port 0 picks a free port: read server_address)."""
     if not os.path.isdir(tmp_folder):
         tmp_folder = tempfile.gettempdir()
-    return ThreadingHTTPServer((host, port), make_handler(engine, tmp_folder))
+    return ThreadingHTTPServer((host, port),
+                               make_handler(engine, tmp_folder, web_dirs()))
 
 
 def load_engine(db_path: str, device="cuda", n_shards: int = 0):
@@ -274,9 +324,9 @@ def load_engine(db_path: str, device="cuda", n_shards: int = 0):
 
 
 def serve(db_path: str, port: int = 8321, device="cuda",
-          tmp_folder: str = "", n_shards: int = 0) -> None:
-    """Load a database onto `device` (load_engine) and serve it until
-    interrupted."""
+          tmp_folder: str = "/tmp/", n_shards: int = 0) -> None:
+    """Load a database onto `device` (load_engine) and serve it, with the
+    static routes, until interrupted."""
     httpd = make_server(load_engine(db_path, device, n_shards), port,
                         tmp_folder)
     print(f" + kaamer-tpu-torch server listening on port {port}")

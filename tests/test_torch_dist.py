@@ -391,9 +391,9 @@ def test_cli_shards_flag(monkeypatch, program):
 
     monkeypatch.setattr(build, "build_db",
                         lambda *a, **kw: seen.update(kw, args=a))
-    argv = [program, "-d", "db", "-shards", "4"]
+    argv = ["db", program, "-d", "db", "-shards", "4"]
     if program == "-make":
         argv += ["-i", "in.fasta", "-f", "fasta"]
-    assert cli.kaamer_db_main(argv) == 0
+    assert cli.main(argv) == 0
     assert seen["n_shards"] == 4
     assert cli._db_parser().parse_args([program]).shards == 0

@@ -49,10 +49,17 @@ def test_import_every_module_loads_no_jax_package():
         "kaamer_tpu_torch.index.build", "kaamer_tpu_torch.search.orf",
         "kaamer_tpu_torch.search.gcode", "kaamer_tpu_torch.upload",
         "kaamer_tpu_torch.bench.serving", "kaamer_tpu_torch.parallel.dist",
-        "kaamer_tpu_torch.parallel.comm"} <= set(mods)
+        "kaamer_tpu_torch.parallel.comm", "kaamer_tpu_torch.index.merge",
+        "kaamer_tpu_torch.index.backup", "kaamer_tpu_torch.server.client",
+        "kaamer_tpu_torch.bench.harness", "kaamer_tpu_torch.cli"} <= set(mods)
     files = {os.path.relpath(p, REPO) for p in _port_files()}
     assert {"kaamer_tpu_torch/search/orf.py",
-            "kaamer_tpu_torch/search/gcode.py"} <= files
+            "kaamer_tpu_torch/search/gcode.py",
+            "kaamer_tpu_torch/index/merge.py",
+            "kaamer_tpu_torch/index/backup.py",
+            "kaamer_tpu_torch/server/client.py",
+            "kaamer_tpu_torch/bench/harness.py",
+            "kaamer_tpu_torch/cli.py"} <= files
     code = (
         "import importlib, sys\n"
         f"for m in {mods + ['chip_smoke']!r}:\n"
