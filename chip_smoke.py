@@ -15,7 +15,9 @@ bench.py: the database comes from the port's own generator
      (row_dma_probe, smem_dyngather) against its plain torch version on
      the same inputs, exactly, with both timed (the kernel's call time and
      its device time alone), and row_dma_probe at depths 1, 8 and 16 at
-     4096 and 2^20 copies;
+     4096 and 2^20 copies; smem_dyngather at T = 8192 also at inner = 1
+     and on uniformly random indices, each with its modelled wavefronts a
+     warp gather;
   3. kernel phase: sw_align (the Smith-Waterman sweep and traceback, one
      warp a pair) on 512 random pairs (30-2048 residues) plus fixed
      cases, exactly equal to its plain torch version on the card, scores
@@ -111,9 +113,12 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # a max each), h0 and h (an add, then three maxes: h0, e, f and zero), and
 # the direction nibble (five compares, a shift and an or)
 SW_OPS_PER_CELL = 17
-# int32 operations of one smem_dyngather element: mask, load, add, and the
-# index update (multiply, add)
-DYNGATHER_OPS = 5
+# int32 instructions of one smem_dyngather element a round: the mask, the
+# sum's add and the index update's multiply-add (its addend 7 + i is a
+# constant of an unrolled round); the element's one shared-memory load
+# goes at 32 banks (words) a clock an SM
+DYNGATHER_OPS = 3
+SMEM_WORDS_PER_S = 132 * 32 * 1.98e9
 # torch.profiler sessions tried before a device time falls back to CUDA events
 PROFILER_TRIES = 3
 # the Pallas probes: (probe, the pallas_call it replaces)
@@ -372,15 +377,26 @@ def time_probe(kernel, plain, args):
     return got, want, ms, dev_ms, plain_ms
 
 
+def wavefronts(idx, T: int, inner: int) -> float:
+    """Modelled shared-memory wavefronts of one smem_dyngather warp gather
+    on these indices over every round (ops/probe_bench.py)."""
+    from kaamer_tpu_torch.ops import probe_bench as pb
+
+    return pb.dyngather_wavefronts(idx.cpu().numpy(), T, inner)
+
+
 def probe_bound(kernel, args):
     """(bound ms, bound_by) of one probe call on args: row_dma_probe moves
     n rows and n indices; smem_dyngather reads x and idx once and does
-    DYNGATHER_OPS int32 operations an element a round."""
+    DYNGATHER_OPS int32 instructions and one shared-memory load an element
+    a round (the slower of the two pipes)."""
     from kaamer_tpu_torch.ops import probe_bench as pb
 
     if kernel is pb.smem_dyngather:
         x, idx, T, inner = args
-        t_ops = T * 128 * inner * DYNGATHER_OPS / INT32_OPS_PER_S * 1e3
+        gathers = T * 128 * inner
+        t_ops = max(gathers * DYNGATHER_OPS / INT32_OPS_PER_S,
+                    gathers / SMEM_WORDS_PER_S) * 1e3
         t_bytes = (x.numel() + idx.numel()) * 4 / HBM_BYTES_PER_S * 1e3
     else:
         table, n = args[0], args[2]
@@ -421,21 +437,25 @@ def probe_phase(device, card: str):
         check(err == 0 and checksum & 0xFFFFFFFF == want,
               f"{label} {kw}: kernel {got}, entry point {checksum}, "
               f"plain {want}")
-        work = (args[2] * 128 * args[3] if kernel is pb.smem_dyngather
-                else args[2])
-        unit = "elems" if kernel is pb.smem_dyngather else "rows"
+        gather = kernel is pb.smem_dyngather
+        work = args[2] * 128 * args[3] if gather else args[2]
+        unit = "elems" if gather else "rows"
+        bound, bound_by = probe_bound(kernel, args)
         print(f"{label} {kernel.__name__} {kw or 'script defaults'}: "
               f"checksum {got} == plain; entry point best-of-3 {secs} s; "
               f"kernel call {ms} ms ({work / ms / 1e3} M {unit}/s), "
-              f"device {dev_ms} ms, plain torch {plain_ms} ms (call: median "
-              f"of CUDA events; device: torch.profiler mean) [{card}]")
+              f"device {dev_ms} ms, bound {bound} ms by {bound_by} "
+              f"({bound / dev_ms:.4f} of it), plain torch {plain_ms} ms "
+              f"(call: median of CUDA events; device: torch.profiler mean)"
+              + (f"; modelled wavefronts a warp gather "
+                 f"{wavefronts(args[1], args[2], args[3])}" if gather
+                 else "") + f" [{card}]")
         row = rows.setdefault(label, {
             "name": f"{label} {kernel.__name__}", "route": "cuda",
             "source": "kaamer_tpu_torch/csrc/probe_bench.cu",
             "launches": 0, "max_abs_err": 0, "configs": []})
         row["launches"] += n_launch
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        bound, bound_by = probe_bound(kernel, args)
         row["configs"].append({**kw, "launches": n_launch, "ms": ms,
                                "device_ms": dev_ms, "plain_ms": plain_ms,
                                "bound_ms": bound})
@@ -463,11 +483,48 @@ def probe_phase(device, card: str):
                 "n_dmas": n, "depth": depth, "ms": ms, "device_ms": dev_ms,
                 "plain_ms": plain_ms,
                 "bound_ms": probe_bound(kernel, args)[0]})
+    rows["P4"]["configs"] += dyngather_configs(device, card)
     out = []
     for label, replaces in PROBES:
         row = rows[label]
         check(row["launches"] > 0, f"{label} launched no kernel")
         out.append({**row, "replaces": replaces})
+    return out
+
+
+def dyngather_configs(device, card: str):
+    """smem_dyngather at P4's T = 8192 off the path, each exactly against
+    its plain version: inner = 1 (the staging, the launch and one round of
+    gathers) and uniformly random indices at inner = 32 (a layout not
+    tuned to the scripts' hash).  Returns their config rows."""
+    import torch
+
+    from kaamer_tpu_torch.bench import probe_microbench as pmb
+    from kaamer_tpu_torch.ops import probe_bench as pb
+
+    T = 8192
+    x, script_idx = pmb.v4_case(device, T=T)[2][:2]
+    rng = np.random.default_rng(9)
+    random_idx = torch.from_numpy(rng.integers(
+        -2**31, 2**31, size=(T, 128), dtype=np.int64).astype(np.int32)
+    ).to(device)
+    out = []
+    for name, idx, inner in (("inner=1", script_idx, 1),
+                             ("random idx", random_idx, 32)):
+        args = (x, idx, T, inner)
+        got, want, ms, dev_ms, plain_ms = time_probe(
+            pb.smem_dyngather, pb.smem_dyngather_plain, args)
+        check(got == want, f"smem_dyngather {name}: kernel {got}, plain "
+              f"{want}")
+        bound = probe_bound(pb.smem_dyngather, args)[0]
+        wf = wavefronts(idx, T, inner)
+        print(f"P4 smem_dyngather T={T} {name}: checksum {got} == plain; "
+              f"kernel call {ms} ms, device {dev_ms} ms, bound {bound} ms "
+              f"({bound / dev_ms:.4f} of it), plain torch {plain_ms} ms; "
+              f"modelled wavefronts a warp gather {wf} [{card}]")
+        out.append({"T": T, "inner": inner, "case": name, "ms": ms,
+                    "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound})
     return out
 
 

@@ -120,6 +120,37 @@ def encode_kmers_batch(codes: np.ndarray) -> np.ndarray:
     return (p1 << 23) | (p2 << 14) | (p3 << 5) | last
 
 
+def encode_kmer(kmer: str) -> int:
+    """Scalar encode of one 7-mer (tests/debug only)."""
+    assert len(kmer) == KMER_SIZE
+    return int(encode_kmers_np(seq_to_codes(kmer))[0])
+
+
+def decode_kmer(value: int) -> str:
+    """Inverse of encode_kmer for valid codes (k_store.go:120-145)."""
+    aa = (value >> 23) & 0x1FF
+    bb = (value >> 14) & 0x1FF
+    cc = (value >> 5) & 0x1FF
+    dd = value & 0x1F
+
+    def pair(code: int) -> str:
+        if code < 22:
+            return "??"
+        code -= 22
+        return AA_ALPHABET[code // N_AA] + AA_ALPHABET[code % N_AA]
+
+    return pair(aa) + pair(bb) + pair(cc) + AA_ALPHABET[dd]
+
+
+def query_num_kmers(seq: str) -> int:
+    """SizeInKmer of a query: L-6, minus one if the sequence ends with '*'
+    (reference search.go:290-293)."""
+    n = len(seq) - KMER_SIZE + 1
+    if seq.endswith("*"):
+        n -= 1
+    return n
+
+
 def pack_codes7(codes: np.ndarray) -> np.ndarray:
     """int8[B, W] residue codes (-1 = pad) -> uint32[B, ceil(W/7)].
 

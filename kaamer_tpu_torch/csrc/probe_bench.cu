@@ -53,23 +53,82 @@
 // in flight already cover L2's latency, and deeper rings only take shared
 // memory, and with it resident warps.
 //
-// smem_dyngather replaces the Pallas on-chip gathers
-// scripts/pallas_dma_probe.py:v4_vmem_dyngather and
-// scripts/probe_microbench.py:pallas_dyngather_bench:
+// smem_dyngather replaces the Pallas on-chip gathers P4
+// scripts/pallas_dma_probe.py:185 (v4_vmem_dyngather) and P5
+// scripts/probe_microbench.py:217 (pallas_dyngather_bench):
 //
 //   s = sum_{i < inner} sum_{r, c} x[idx_i[r, c] & (T-1), c],
 //   idx_{i+1} = idx_i * 1664525 + 7 + i        (32-bit wrap; s mod 2^32)
 //
-// The TPU keeps the whole [T, 128] table in VMEM; at T = 8192 that is 4 MB,
-// beyond a block's 227 KB of shared memory.  The gather runs along rows
-// only (out[r, c] reads column c), so each block stages one column
-// x[:, c] (T * 4 bytes, 32 KB at T = 8192) in shared memory and gathers
-// from it: 128 blocks for 132 SMs.  Each thread walks its indices through
-// the `inner` rounds in registers, in uint32 (signed overflow is undefined
-// in C++); the block reduces and adds into one uint32 with atomicAdd.  A
-// sum mod 2^32 does not depend on order, so the result is exact and
-// repeatable.  Bound: shared-memory random reads, T * 128 * inner of them.
+// x and idx are [T, 128], T a power of two up to 32768.  The TPU keeps the
+// whole table in VMEM; at T = 8192 that is 4 MB, beyond a block's 227 KB of
+// shared memory.  The gather runs along rows only (element (r, c) reads
+// column c), so block c holds column x[:, c] in shared memory and walks
+// every row of column c: 128 blocks, one an SM.  Bound: the int32
+// instructions, 3 an element a round (the mask, the sum's add and the
+// index update's one multiply-add) at 64 lanes an SM, against one
+// shared-memory word an element a round at 32 banks an SM: 0.006018 ms
+// against 0.004012 ms at T = 8192, inner = 32 on 132 SMs
+// (chip_smoke.py:probe_bound).
+//
+// Wavefront model.  A warp's shared-memory load takes one wavefront per
+// distinct word in its busiest bank (bank = word slot mod 32).  The first
+// port stored word a at slot a, and the scripts' indices,
+// idx[r, c] = ((r * 128 + c) * 2654435761) mod T, share their low 7 bits
+// down a column (128 = 0 mod 32), as does every later round (the update is
+// the same bijection mod 2^k for every lane): all 32 lanes of a warp read
+// distinct words of one bank, 32 wavefronts a gather.  That model
+// (ops/probe_bench.py:dyngather_wavefronts) put the first port at 0.132 ms
+// at T = 8192 against 0.147514 ms measured (NVIDIA H100 80GB HBM3, 700 W).
+// Uniformly random indices cost 3.52 wavefronts a gather.
+//
+// The design, part by part:
+//  - layout: word a of the column is stored at slot
+//    a ^ (((a >> 5) ^ (a >> 10)) & 31): every bit of the index above the
+//    bank bits is folded into the bank (an XOR swizzle, as CUTLASS's, fixed
+//    for all inputs; it changes only the low 5 bits, keyed by the bits above
+//    them, so it is a bijection on [0, T) for every power of two T).  The
+//    scripts' inputs model at 1.0 (T = 512, 4096) and 1.97 (T = 8192)
+//    wavefronts a gather, random indices stay at 3.52, and consecutive
+//    words (the staging stores) keep distinct banks;
+//  - lanes: thread t of the block takes rows lo + t, lo + t + 1024, ... of
+//    each chunk of rows [lo, lo + 8192), so a warp holds 32 consecutive
+//    rows of its column (ops/probe_bench.py:dyngather_warp_rows);
+//  - gathers in flight: 1024 threads a block (32 warps an SM) and the
+//    round loop unrolled kDgUnroll = 8 deep, with a runtime remainder: the
+//    index walk does not depend on the loaded words, so a thread has 8
+//    independent loads in flight.  The sum mod 2^32 is exact in any order;
+//  - staging: a block read its column at a 512-byte stride, one 32-byte
+//    sector a word, 8x the bytes.  Blocks now run in clusters of S
+//    adjacent columns.  Block k of a cluster reads a contiguous share of
+//    the rows of all S columns (S words a row, contiguous) and stores each
+//    word into its column's block through distributed shared memory
+//    (cluster.map_shared_rank); a cluster barrier publishes them.  idx is
+//    staged the same way, into a buffer of 8192 rows that the gathers read
+//    at consecutive words.  S = 8 would read whole sectors, but the H100
+//    runs fewer than 16 clusters of 8 (or 32 of 4) at one block an SM, and
+//    a second wave of clusters costs more than the sectors it saves: S is
+//    2 where the card runs all 64 clusters of 2 at once
+//    (cudaOccupancyMaxActiveClusters), else 1.  TMA multicast
+//    was not taken: it sends every block of a cluster the same tile, so
+//    each block would hold all S columns of a chunk to keep one;
+//  - one block an SM: every launch asks for the shared memory of the
+//    largest table and chunk, (32768 + 8192) * 4 = 160 KB, more than half
+//    an SM's, so two columns never share an SM's pipes.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, device
+// time by torch.profiler; the first port's, from an earlier chip_smoke.py
+// run on that card, in brackets): T = 8192, inner = 32: 0.0250 ms, 24% of
+// the bound (0.1475); on uniformly random indices 0.0262; inner = 1
+// 0.0119, so staging and launch are about half; T = 4096 0.0141 (0.0739);
+// T = 512 0.0043 (0.0036: there the cluster barriers and 32-warp blocks
+// cost more than the gathers save).  That card picks clusters of 2.  The
+// rounds after the first take 0.42 us each at T = 8192 where the wavefront
+// model gives 0.25 and the bound 0.19: the swizzle's integer instructions,
+// not the banks, bound the scripts' inputs; random indices (0.46 us a
+// round) are at the model.  More in PERF.md section 6.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,7 +141,14 @@ namespace {
 constexpr int kMaxBlockWarps = 32;    // row_dma_probe: 1024 threads a block
 constexpr int kMaxStagedRows = 1024;  // stage_idx: most indices a warp
                                       // stages
-constexpr int kDyngatherMaxT = 32768;  // smem_dyngather: most table rows
+// smem_dyngather
+constexpr int kDyngatherMaxT = 32768;  // most table rows
+constexpr int kDgThreads = 1024;       // a block
+constexpr int kDgChunk = 8192;         // rows of idx staged at once
+constexpr int kDgUnroll = 8;           // rounds in flight a thread
+constexpr int kDgMaxCluster = 2;       // columns a cluster
+// every launch: the largest column and one idx chunk (one block an SM)
+constexpr size_t kDgSmemBytes = (size_t)(kDyngatherMaxT + kDgChunk) * 4;
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -203,34 +269,101 @@ row_dma_probe_kernel(const uint32_t* __restrict__ table, int row_words,
   }
 }
 
-#define DG_THREADS 256
+namespace cg = cooperative_groups;
 
-__global__ void __launch_bounds__(DG_THREADS)
+// Shared-memory slot of word a of a column: the bits above the bank bits
+// folded into them (a bijection on [0, T) for every power of two T <= 2^15)
+__device__ __forceinline__ uint32_t dg_slot(uint32_t a) {
+  return a ^ (((a >> 5) ^ (a >> 10)) & 31u);
+}
+
+// The cluster barrier: arrive (release: this thread's earlier accesses,
+// its stores into other blocks and its reads of the last idx chunk among
+// them, come first; relaxed: nothing to order), then wait (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// This block's share of a cluster staging step: rows [lo, lo + n) of the
+// cluster's S columns c0 .. c0 + S - 1 of src ([*, 128] words) are n * S
+// words, read row by row (S contiguous words a row); block `rank` reads
+// words [rank * n, (rank + 1) * n) of them and stores word (lo + r, c0 + j)
+// at dst[slot(r)] in block j of the cluster (slot: dg_slot with swizzle,
+// else r).  blockDim.x is a multiple of S, so a thread's words all go to
+// one block.
+__device__ __forceinline__ void dg_stage(const uint32_t* __restrict__ src,
+                                         uint32_t* dst, int lo, int n,
+                                         int c0, int log2s, bool swizzle) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int base = (int)cluster.block_rank() * n;
+  const int j = (base + (int)threadIdx.x) & ((1 << log2s) - 1);
+  uint32_t* remote = cluster.map_shared_rank(dst, j);
+  for (int e = threadIdx.x; e < n; e += kDgThreads) {
+    const int r = (base + e) >> log2s;  // row of the pass
+    const uint32_t v = src[(size_t)(lo + r) * 128 + c0 + j];
+    remote[swizzle ? dg_slot((uint32_t)r) : (uint32_t)r] = v;
+  }
+}
+
+// Block c of the grid walks column c.  Clusters of S = 2^log2s blocks along
+// x: a cluster holds columns c0 .. c0 + S - 1, block rank j column c0 + j.
+__global__ void __launch_bounds__(kDgThreads, 1)
 smem_dyngather_kernel(const uint32_t* __restrict__ x,
                       const uint32_t* __restrict__ idx, int T, int inner,
                       uint32_t* __restrict__ out) {
-  extern __shared__ uint32_t col[];  // x[:, c], T words
-  __shared__ uint32_t warp_sums[DG_THREADS / 32];
-  const int c = blockIdx.x;
-  for (int r = threadIdx.x; r < T; r += DG_THREADS) {
-    col[r] = x[(size_t)r * 128 + c];
-  }
-  __syncthreads();
+  extern __shared__ uint32_t dg_smem[];
+  uint32_t* col = dg_smem;             // x[:, c], T words, swizzled
+  uint32_t* ids = dg_smem + T;         // idx[lo:lo + chunk, c]
+  __shared__ uint32_t warp_sums[kDgThreads / 32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int log2s = __ffs((int)cluster.num_blocks()) - 1;
+  const int c0 = blockIdx.x - (int)cluster.block_rank();
+  const int chunk = min(T, kDgChunk);
   const uint32_t mask = (uint32_t)T - 1u;
   uint32_t s = 0;
-  for (int r = threadIdx.x; r < T; r += DG_THREADS) {
-    uint32_t id = idx[(size_t)r * 128 + c];
-    for (int i = 0; i < inner; ++i) {
-      s += col[id & mask];
-      id = id * 1664525u + 7u + (uint32_t)i;
+  for (int lo = 0; lo < T; lo += chunk) {
+    if (lo == 0) {
+      // every block of the cluster runs before any store into its memory
+      cluster_arrive_relaxed();
+      cluster_wait();
+      dg_stage(x, col, 0, T, c0, log2s, true);
+    } else {
+      cluster_arrive();  // every block has read the last chunk
+      cluster_wait();
+    }
+    dg_stage(idx, ids, lo, chunk, c0, log2s, false);
+    cluster_arrive();  // the column and this chunk have landed
+    cluster_wait();
+    for (int r = threadIdx.x; r < chunk; r += kDgThreads) {
+      uint32_t id = ids[r];
+      int i = 0;
+      for (; i + kDgUnroll <= inner; i += kDgUnroll) {
+#pragma unroll
+        for (int u = 0; u < kDgUnroll; ++u) {
+          s += col[dg_slot(id & mask)];
+          id = id * 1664525u + 7u + (uint32_t)(i + u);
+        }
+      }
+      for (; i < inner; ++i) {
+        s += col[dg_slot(id & mask)];
+        id = id * 1664525u + 7u + (uint32_t)i;
+      }
     }
   }
+  // no store reaches another block's memory after the last cluster
+  // barrier, so a block may exit while the others still gather
   for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
   if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = s;
   __syncthreads();
   if (threadIdx.x == 0) {
     uint32_t b = 0;
-    for (int w = 0; w < DG_THREADS / 32; ++w) b += warp_sums[w];
+    for (int w = 0; w < kDgThreads / 32; ++w) b += warp_sums[w];
     atomicAdd(out, b);
   }
 }
@@ -245,7 +378,38 @@ struct DeviceLimits {
   int warps_per_sm;  // most resident warps of an SM
   size_t probe_smem;  // row_dma_probe: most dynamic shared memory a block,
   size_t probe_smem2;  // and a block's share with two blocks an SM
+  int dg_cluster;     // smem_dyngather: blocks a cluster
 };
+
+// smem_dyngather's launch: 128 blocks, clusters of `cluster` along x (1: a
+// plain launch, whose cluster is its one block)
+cudaLaunchConfig_t dg_config(int cluster, cudaStream_t stream,
+                             cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(128);
+  cfg.blockDim = dim3(kDgThreads);
+  cfg.dynamicSmemBytes = kDgSmemBytes;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return cfg;
+}
+
+// kDgMaxCluster blocks a cluster if the device runs all 128 /
+// kDgMaxCluster clusters at once (one block an SM), else 1
+cudaError_t dg_pick_cluster(int* cluster) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = dg_config(kDgMaxCluster, nullptr, &attr);
+  int n = 0;
+  cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &n, (void*)smem_dyngather_kernel, &cfg);
+  *cluster = n * kDgMaxCluster >= 128 ? kDgMaxCluster : 1;
+  return err;
+}
 
 cudaError_t device_limits(int dev, DeviceLimits* lim) {
   static DeviceLimits limits[kMaxDevices];
@@ -285,8 +449,9 @@ cudaError_t device_limits(int dev, DeviceLimits* lim) {
       if (err == cudaSuccess) {
         err = cudaFuncSetAttribute(smem_dyngather_kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   kDyngatherMaxT * 4);
+                                   (int)kDgSmemBytes);
       }
+      if (err == cudaSuccess) err = dg_pick_cluster(&d.dg_cluster);
       if (err != cudaSuccess) return err;  // the next launch tries again
       limits[dev] = d;
       ready[dev].store(true, std::memory_order_release);
@@ -354,11 +519,14 @@ int kt_row_dma_probe(const void* table, int row_words, const void* idx,
   return (int)cudaGetLastError();
 }
 
-// out: uint32[1], zeroed by the caller.  T a power of two, at most 32768
-// (a column of T words in a block's shared memory).
-int kt_smem_dyngather(const void* x, const void* idx, int T, int inner,
-                      void* out, void* stream) {
-  if (T < 1 || (T & (T - 1)) || T > kDyngatherMaxT) {
+// smem_dyngather at `cluster` blocks a cluster, 1 or 2, or 0 for the
+// device's pick.  kt_smem_dyngather launches the pick; this is the seam by
+// which the card tests also launch clusters of 1 on a card that picks 2.
+int kt_smem_dyngather_clusters(const void* x, const void* idx, int T,
+                               int inner, int cluster, void* out,
+                               void* stream) {
+  if (T < 1 || (T & (T - 1)) || T > kDyngatherMaxT || inner < 0 ||
+      cluster < 0 || cluster > kDgMaxCluster) {
     return (int)cudaErrorInvalidValue;
   }
   int dev;
@@ -366,10 +534,19 @@ int kt_smem_dyngather(const void* x, const void* idx, int T, int inner,
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = device_limits(dev, &lim);
   if (err != cudaSuccess) return (int)err;
-  smem_dyngather_kernel<<<128, DG_THREADS, (size_t)T * 4,
-                          (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (const uint32_t*)idx, T, inner, (uint32_t*)out);
-  return (int)cudaGetLastError();
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = dg_config(
+      cluster ? cluster : lim.dg_cluster, (cudaStream_t)stream, &attr);
+  return (int)cudaLaunchKernelEx(&cfg, smem_dyngather_kernel,
+                                 (const uint32_t*)x, (const uint32_t*)idx, T,
+                                 inner, (uint32_t*)out);
+}
+
+// out: uint32[1], zeroed by the caller.  T a power of two, at most 32768
+// (a column of T words in a block's shared memory).
+int kt_smem_dyngather(const void* x, const void* idx, int T, int inner,
+                      void* out, void* stream) {
+  return kt_smem_dyngather_clusters(x, idx, T, inner, 0, out, stream);
 }
 
 }  // extern "C"

@@ -6,8 +6,8 @@ required) into kaamer_tpu_torch/build/, not beside the source.  Every
 entry point has a pure numpy fallback, so the package works without a
 toolchain; `available()` reports which path is active.  The port binds
 the entry points its paths use: pair extraction and the sort of the
-database build, the query wire packer, and the six-frame ORF scan of
-translated search.
+database build, the query wire packer, the six-frame ORF scan of
+translated search, and the FASTA scanner (parse_fasta_bytes).
 """
 
 from __future__ import annotations
@@ -50,6 +50,12 @@ def _load():
             lib.kt_extract_pairs.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                 ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+            ]
+            lib.kt_parse_fasta.restype = ctypes.c_int64
+            lib.kt_parse_fasta.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int64,
             ]
             lib.kt_pack_queries.restype = ctypes.c_int64
             lib.kt_pack_queries.argtypes = [
@@ -188,3 +194,27 @@ def get_orfs_raw(dna_buf: np.ndarray, dna_off: np.ndarray,
     )
     assert n >= 0, "kt_get_orfs capacity overflow (bounds are analytic)"
     return (seq_buf, seq_off[: n + 1], meta[:n], alts_buf, alts_off[: n + 1])
+
+
+def parse_fasta_bytes(data: bytes):
+    """Scan FASTA bytes -> (seq_buf, seq_off, headers list).  Returns None
+    when the native library is unavailable (callers fall back to the Python
+    parser)."""
+    lib = _load()
+    if lib is None:
+        return None
+    n_max = data.count(b">") + 1
+    inp = np.frombuffer(data, dtype=np.uint8)
+    seq_buf = np.empty(len(data), dtype=np.uint8)
+    hdr_buf = np.empty(len(data), dtype=np.uint8)
+    seq_off = np.zeros(n_max + 1, dtype=np.int64)
+    hdr_off = np.zeros(n_max + 1, dtype=np.int64)
+    n = lib.kt_parse_fasta(
+        inp.ctypes.data, len(data), seq_buf.ctypes.data, seq_off.ctypes.data,
+        hdr_buf.ctypes.data, hdr_off.ctypes.data, n_max,
+    )
+    headers = [
+        bytes(hdr_buf[hdr_off[i]:hdr_off[i + 1]]).decode("utf-8", "replace")
+        for i in range(n)
+    ]
+    return seq_buf, seq_off[: n + 1], headers

@@ -34,6 +34,7 @@ _SIGNATURES = {
     "kt_sw_align_pair_bytes": (ctypes.c_longlong, [_I, _I]),
     "kt_row_dma_probe": (_I, [_P, _I, _P, _I, _I, _I, _I, _P, _P]),
     "kt_smem_dyngather": (_I, [_P, _P, _I, _I, _P, _P]),
+    "kt_smem_dyngather_clusters": (_I, [_P, _P, _I, _I, _I, _P, _P]),
     "kt_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

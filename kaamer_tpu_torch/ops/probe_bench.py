@@ -9,12 +9,16 @@ with a plain torch version of the same signature.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 version.  Both return int32[1] holding the 32 result bits (the scripts'
-int32 or uint32 checksum).  torch on the CPU has no uint32 << or wrapping
-*, so the plain versions compute in int64 masked to 32 bits.
+int32 or uint32 checksum).  smem_dyngather's shared-memory layout is
+mirrored here in numpy (dyngather_slot, dyngather_warp_rows) with its
+bank-conflict model (dyngather_wavefronts), so the CPU tests check the
+layout.  torch on the CPU has no uint32 << or wrapping *, so the plain
+versions compute in int64 masked to 32 bits.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _kernels
@@ -92,6 +96,61 @@ def row_dma_probe(table, idx, n: int, depth: int, stage_idx: bool = False,
     return out
 
 
+# smem_dyngather's layout (csrc/probe_bench.cu): one block of DG_THREADS
+# threads a column, idx walked in chunks of DG_CHUNK rows
+DG_THREADS = 1024
+DG_CHUNK = 8192
+
+
+def dyngather_slot(a):
+    """Shared-memory slot of word a of a column (the kernel's dg_slot):
+    every bit above the 5 bank bits folded into them by XOR.  A bijection
+    on [0, T) for every power of two T <= 2^15.  Takes an int or an
+    integer array."""
+    return a ^ (((a >> 5) ^ (a >> 10)) & 31)
+
+
+def dyngather_warp_rows(T: int) -> np.ndarray:
+    """The rows each lane of each warp gathers for, int64[warp steps, 32],
+    -1 where a lane is idle (warps with no row are left out): thread t of
+    a block takes rows lo + t, lo + t + DG_THREADS, ... of each chunk
+    [lo, lo + min(T, DG_CHUNK)), so lane l of warp w at step k holds row
+    lo + k * DG_THREADS + 32 * w + l.  Every warp's lanes hold 32
+    consecutive rows of the block's column (as in the first port, 256
+    threads a block)."""
+    chunk = min(T, DG_CHUNK)
+    within = np.arange(-(-chunk // 32) * 32, dtype=np.int64).reshape(-1, 32)
+    within = np.where(within < chunk, within, -1)
+    return np.concatenate([np.where(within >= 0, within + lo, -1)
+                           for lo in range(0, T, chunk)])
+
+
+def dyngather_wavefronts(idx: np.ndarray, T: int, inner: int,
+                         swizzle: bool = True) -> float:
+    """Modelled shared-memory wavefronts of one warp gather of
+    smem_dyngather on idx (int[T, 128]) over `inner` rounds, the mean over
+    columns, warps and rounds: a warp's load takes one wavefront per
+    distinct word in its busiest bank (slot mod 32).  swizzle=False
+    models the first port, which stored word a at slot a."""
+    rows = dyngather_warp_rows(T)
+    live = rows >= 0
+    ids = np.asarray(idx, np.int64).T[:, np.maximum(rows, 0)] & 0xFFFFFFFF
+    total = 0.0
+    for i in range(inner):
+        a = ids & (T - 1)
+        slot = np.where(live, dyngather_slot(a) if swizzle else a, -1)
+        slot = np.sort(slot.reshape(-1, 32), axis=1)
+        first = np.ones(slot.shape, bool)
+        first[:, 1:] = slot[:, 1:] != slot[:, :-1]
+        first &= slot >= 0
+        warp = np.broadcast_to(np.arange(slot.shape[0])[:, None], slot.shape)
+        per_bank = np.bincount((warp * 32 + (slot & 31))[first],
+                               minlength=slot.shape[0] * 32)
+        total += per_bank.reshape(-1, 32).max(axis=1).mean()
+        ids = (ids * 1664525 + 7 + i) & 0xFFFFFFFF
+    return total / inner if inner else 0.0
+
+
 def smem_dyngather_plain(x, idx, T: int, inner: int) -> torch.Tensor:
     """sum over i < inner of x[idx_i & (T-1), c] over every (r, c), with
     idx_{i+1} = idx_i * 1664525 + 7 + i, all mod 2^32."""
@@ -106,19 +165,21 @@ def smem_dyngather_plain(x, idx, T: int, inner: int) -> torch.Tensor:
 
 def smem_dyngather(x, idx, T: int, inner: int) -> torch.Tensor:
     """Repeated on-chip gathers along rows: x, idx int32[T, 128] (x holds
-    uint32 words), T a power of two.  Returns int32[1], the 32 bits of the
-    sum mod 2^32."""
+    uint32 words), T a power of two, inner >= 0 rounds.  Returns int32[1],
+    the 32 bits of the sum mod 2^32."""
     dev = x.device
     _check("x", x, torch.int32, 2, dev)
     _check("idx", idx, torch.int32, 2, dev)
     if x.shape != (T, 128) or idx.shape != (T, 128) or T & (T - 1):
         raise ValueError(f"want x, idx [{T}, 128] with T a power of two, got "
                          f"{tuple(x.shape)}, {tuple(idx.shape)}")
+    if inner < 0:
+        raise ValueError(f"want inner >= 0, got {inner}")
     if dev.type == "cpu":
         return smem_dyngather_plain(x, idx, T, inner)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if T * 4 > 227 * 1024:
+    if T > 32768:
         raise ValueError(f"a column of T={T} words exceeds shared memory")
     out = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _kernels.lib()

@@ -90,3 +90,44 @@ def test_probe_key_whose_two_hashes_coincide():
     np.testing.assert_array_equal(gl, wl)
     assert gs.tolist() == [40, 90, 1000, 1000]
     assert gl.tolist() == [7, 3, 0, 0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scalar_kmer_helpers_match_jax(seed):
+    """encode_kmer, decode_kmer and query_num_kmers equal the JAX package's
+    on random 7-mers and queries, characters outside the alphabet and a
+    trailing '*' included."""
+    rng = np.random.default_rng(seed)
+    letters = list(AA + "*")
+    for _ in range(200):
+        kmer = "".join(rng.choice(list(AA), size=7))
+        value = codec.encode_kmer(kmer)
+        assert tcodec.encode_kmer(kmer) == value
+        assert tcodec.decode_kmer(value) == codec.decode_kmer(value)
+        query = "".join(rng.choice(letters, size=int(rng.integers(0, 40))))
+        assert tcodec.query_num_kmers(query) == codec.query_num_kmers(query)
+    assert tcodec.query_num_kmers("ACDEFGHI*") == codec.query_num_kmers(
+        "ACDEFGHI*") == 2
+
+
+def test_parse_fasta_bytes_matches_jax():
+    """The port's native FASTA scanner gives the JAX package's buffers,
+    offsets and headers (CRLF, blank lines, lower case, spaces, an empty
+    record)."""
+    from kaamer_tpu import native as jnative
+    from kaamer_tpu_torch import native as tnative
+
+    rng = np.random.default_rng(3)
+    records = [b">P1 first protein\nMELPni mhpv\nAKLS\n",
+               b">P2 second\r\nMELPNIM\n\n", b">empty\n"]
+    for i in range(40):
+        seq = "".join(rng.choice(list(AA.lower() + AA), size=90)).encode()
+        records.append(b">Q%d some header\n%s\n%s\n" % (i, seq[:60], seq[60:]))
+    data = b"".join(records)
+    want = jnative.parse_fasta_bytes(data)
+    got = tnative.parse_fasta_bytes(data)
+    assert (got is None) == (want is None) and tnative.available()
+    np.testing.assert_array_equal(got[1], want[1])
+    # the buffer past the last offset is never written
+    np.testing.assert_array_equal(got[0][:got[1][-1]], want[0][:want[1][-1]])
+    assert got[2] == want[2] and len(got[2]) == 43

@@ -222,6 +222,48 @@ def test_smem_dyngather_matches_plain(cuda, T, inner):
     assert torch.equal(got.cpu(), want.cpu())
 
 
+def _dyngather_in_clusters(x, idx, T, inner, cluster):
+    """smem_dyngather's kernel launched at `cluster` blocks a cluster
+    through the entry kt_smem_dyngather_clusters (the wrapper launches the
+    device's pick)."""
+    out = torch.zeros(1, dtype=torch.int32, device=x.device)
+    rc = _kernels.lib().kt_smem_dyngather_clusters(
+        x.data_ptr(), idx.data_ptr(), T, inner, cluster, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    _kernels.check(rc, "smem_dyngather")
+    return out
+
+
+@pytest.mark.parametrize("T", [1, 2, 32, 8192, 32768])
+@pytest.mark.parametrize("inner", [0, 1, 33])
+def test_smem_dyngather_random_indices(cuda, T, inner):
+    """Uniformly random x and idx words (negative int32 included) at the
+    edge table sizes (T = 1 and 2, one row of staging a block; T = 32768,
+    four idx chunks) and round counts (none; one; 33, an unroll
+    remainder), through the wrapper and at both cluster sizes the kernel
+    launches (1 is the fallback of a card that cannot run 64 clusters of 2
+    at once)."""
+    rng = np.random.default_rng(T * 64 + inner)
+    x, idx = (torch.from_numpy(rng.integers(-2**31, 2**31, size=(T, 128),
+                                            dtype=np.int64).astype(np.int32))
+              .to(cuda) for _ in range(2))
+    want = pb.smem_dyngather_plain(x, idx, T, inner).cpu()
+    assert torch.equal(pb.smem_dyngather(x, idx, T, inner).cpu(), want)
+    for cluster in (1, 2):
+        got = _dyngather_in_clusters(x, idx, T, inner, cluster)
+        assert torch.equal(got.cpu(), want), cluster
+
+
+def test_smem_dyngather_rejects_bad_clusters(cuda):
+    """The entry launches clusters of 1 or 2 (0: the device's pick) and
+    refuses any other size before a launch."""
+    x = pmb._table(64, 128, cuda)
+    idx = pmb._hash_idx(64 * 128, 64, cuda).reshape(64, 128)
+    for cluster in (-1, 4, 8):
+        with pytest.raises(RuntimeError, match="smem_dyngather failed"):
+            _dyngather_in_clusters(x, idx, 64, 3, cluster)
+
+
 @pytest.mark.parametrize("L", [256, 512])
 def test_hot_matmul_exact_on_card(cuda, L):
     """W @ M on the card with counts above 256 at L = 512 (the hi/lo
