@@ -43,24 +43,33 @@ bench.py: the database comes from the port's own generator
      batch with and without bitmaps) and reads the peak device memory;
   9. serves R1, R3, R4 and R5 again from a cold engine (hot=False): the
      bytes must equal the hot engine's;
- 10. shard phase: the same database on ShardedSearchEngine (per-shard
+ 10. warmup phase: two fresh processes on the same database
+     (kaamer_tpu_torch.bench.serving --first): one without warmup serves
+     its first R1 under torch.profiler and cProfile and splits its wall
+     over a warm R1's (CUDA API calls, cuBLAS's first use, Python and C
+     functions, remainder), one runs engine.warmup() first (its seconds,
+     dispatches, reserved and peak bytes); each serves R1, R3 and R4
+     twice, every body's sha256 equal to this process's;
+ 11. shard phase: the same database on ShardedSearchEngine (per-shard
      hot sets) over a one-row grid -- with one card two shards sharing
      it, else min(4, cards) cards -- prints each shard's resident bytes,
+     runs ShardedSearchEngine.warmup() (its seconds and reserved bytes),
      serves R1-R5 over HTTP twice each (every body equal to the hot
      single-device engine's; sw_align launches per request, R2 and R5
      must launch it), R3 and R5 with the bitmap gate off, and the sync
      proof of step 6 on the sharded dispatch_batch and schedule_batch;
- 11. the dryrun_multichip twin (kaamer_tpu_torch.bench.multichip) on a
+ 12. the dryrun_multichip twin (kaamer_tpu_torch.bench.multichip) on a
      (2, 2) grid of the cards, repeated as needed;
- 12. a shard-built (2-shard) skewed database of 100,000 proteins (or
+ 13. a shard-built (2-shard) skewed database of 100,000 proteins (or
      --proteins, if fewer): R1 and R3 bytes equal its global build's on
      SearchEngine;
- 13. lifecycle phase, at the same size, each step a subprocess of the
+ 14. lifecycle phase, at the same size, each step a subprocess of the
      port's CLI (python -m kaamer_tpu_torch.cli db|search ...): two
      -noindex halves of the same FASTA, -merge, -index, -backup, -restore
      and -gc, the restored artifact byte-equal to the global build;
-     `db -server` on the restored database on the card, queried by `cli
-     search` (R2 with -aln in path and file mode, R3 as JSON with
+     `db -server` on the restored database on the card (warming in the
+     background), queried by `cli search` (R2 with -aln in path and file
+     mode, R3 as JSON with
      positions, R5 as -t nt), each body equal to SearchEngine's on the
      global build; GET /, /web/ and /docs/README.md; the bench harness's
      opendb and a traced search (the trace must hold a CUDA kernel); and
@@ -93,7 +102,8 @@ from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
-from kaamer_tpu_torch.bench.serving import (Served, card_line, post,
+from kaamer_tpu_torch.bench.serving import (Served, card_line,
+                                            counting_calls, post,
                                             smoke_requests)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -949,6 +959,58 @@ def cold_pass(art, device, reqs, bodies, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# warmup phase
+# ---------------------------------------------------------------------------
+
+
+def warmup_phase(path: str, bodies, card: str) -> dict:
+    """The first requests of two fresh processes on the database at path
+    (kaamer_tpu_torch.bench.serving --first): without warmup, with its
+    first R1 split, and after engine.warmup().  Each must exit 0 and
+    return R1, R3 and R4 bodies whose sha256 equal this process's bodies.
+    Returns each side's result."""
+    import gc
+    import hashlib
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    for side in ("none", "warmup"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "kaamer_tpu_torch.bench.serving",
+             "--first", side, "--db", path], cwd=REPO, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"warmup phase, side {side}: exit "
+              f"{proc.returncode}\n{proc.stdout[-3000:]}\n"
+              f"{proc.stderr[-4000:]}")
+        lines = proc.stdout.strip().splitlines()
+        for ln in lines[:-1]:
+            print(f"  [{side}] {ln}")
+        for ln in proc.stderr.splitlines():
+            if ln.startswith("warmup:"):
+                print(f"  [{side}] {ln}")
+        res = json.loads(lines[-1])
+        for name, digest in res["sha256"].items():
+            check(digest == hashlib.sha256(bodies[name]).hexdigest(),
+                  f"warmup phase, side {side}: {name} bytes differ from "
+                  "this process's")
+        out[side] = res
+        print(f"warmup phase, side {side}: a fresh process, {wall} s in all "
+              f"(engine loaded in {res['load s']} s); R1, R3, R4 bodies == "
+              f"this process's [{card}]")
+    a, b = out["none"]["walls"], out["warmup"]["walls"]
+    print("first / warm walls, a fresh process without / with warmup: " +
+          "; ".join(f"{n} {a[n][0]} / {a[n][-1]} s without, {b[n][0]} / "
+                    f"{b[n][-1]} s with" for n in b) +
+          f"; warmup {out['warmup']['warmup s']} s [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # shard phase
 # ---------------------------------------------------------------------------
 
@@ -1004,10 +1066,11 @@ def shard_sync(engine, queries) -> None:
 
 
 def shard_phase(art, reqs, bodies, queries, card: str, cards) -> dict:
-    """R1-R5 over HTTP through ShardedSearchEngine on the 1M database, each
-    twice, each body equal to the hot single-device engine's; R3 and R5
-    again with the bitmap gate off; the sync proof.  Returns each kernel's
-    launches per request, counted from 0 just before each first pass."""
+    """ShardedSearchEngine on the 1M database, warmed (its seconds and
+    reserved bytes), then R1-R5 over HTTP, each twice, each body equal to
+    the hot single-device engine's; R3 and R5 again with the bitmap gate
+    off; the sync proof.  Returns each kernel's launches per request,
+    counted from 0 just before each first pass."""
     import gc
 
     import torch
@@ -1042,6 +1105,21 @@ def shard_phase(art, reqs, bodies, queries, card: str, cards) -> dict:
     print(f"sharded engine resident: "
           f"{sum(torch.cuda.memory_allocated(d) - base[d] for d in devs)} "
           f"bytes over {[str(d) for d in devs]} [{card}]")
+    stats = dict(eng.stats)
+    with counting_calls(eng, ("dispatch_batch",
+                              "_dispatch_group")) as counts:
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+    check(eng.stats == stats, f"the sharded warmup changed stats: "
+          f"{eng.stats}")
+    print(f"sharded warmup: {time.perf_counter() - t0} s, "
+          f"{counts['dispatch_batch']} phase-1 batches and "
+          f"{counts['_dispatch_group']} groups (theirs and its own); reserved "
+          f"{sum(torch.cuda.memory_reserved(d) for d in devs)} bytes, peak "
+          f"allocated {sum(torch.cuda.max_memory_allocated(d) for d in devs)}"
+          f" over {[str(d) for d in devs]}; the walls below are after it "
+          f"[{card}]")
 
     per_request = {}
     with Served(eng) as url:
@@ -1223,6 +1301,13 @@ def trace_kernels(path: str) -> list:
     return [e["name"] for e in events if e.get("cat") == "kernel"]
 
 
+def warmup_end(log: str) -> str:
+    """The server log's line that its background warmup ended, or ""."""
+    with open(log) as f:
+        return next((ln.strip() for ln in f
+                     if "serving-shape warmup ended" in ln), "")
+
+
 def lifecycle_phase(n_proteins: int, card: str, device) -> int:
     """The database lifecycle through the port's CLI, each step a
     subprocess: two -noindex halves of the seed-77 skewed FASTA, -merge,
@@ -1320,6 +1405,8 @@ def lifecycle_phase(n_proteins: int, card: str, device) -> int:
             walls.append(wall)
         print(f"lifecycle R1 to the CLI server: first {walls[0]} s, warm "
               f"{walls[1]} s [{card}]")
+        print(f"lifecycle `cli db -server` background warmup after R1: "
+              f"{warmup_end(log) or 'still running'}")
         for what, name, host, opts in searches:
             out_path = os.path.join(root, f"{name}.out")
             run_module("kaamer_tpu_torch.cli", [
@@ -1343,6 +1430,22 @@ def lifecycle_phase(n_proteins: int, card: str, device) -> int:
                   f"GET {path}: {status}, {len(body)} bytes")
         print("lifecycle static routes: GET / -> 302 Location /web/; "
               "/web/ and /docs/README.md -> 200 with the files' bytes")
+        # the server's background warmup must end without an exception;
+        # give it up to two minutes more (it shares the card with the
+        # requests above)
+        t0 = time.perf_counter()
+        while True:
+            with open(log) as f:
+                text = f.read()
+            if ("Traceback" in text or "serving-shape warmup ended" in text
+                    or time.perf_counter() - t0 > 120):
+                break
+            time.sleep(1)
+        check("Traceback" not in text,
+              f"`cli db -server` logged an exception:\n{text[-4000:]}")
+        print(f"lifecycle `cli db -server` background warmup: "
+              f"{warmup_end(log) or 'still running'} "
+              f"({time.perf_counter() - t0} s after the last check) [{card}]")
     finally:
         server.terminate()
         try:
@@ -1484,6 +1587,8 @@ def main() -> int:
     del engine
     cold_pass(art, device, reqs, bodies, card)
     phase("cold")
+    warmup_phase(path, bodies, card)
+    phase("warmup")
     cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     shard_launches = shard_phase(art, reqs, bodies, queries, card, cards)
     phase("shard")

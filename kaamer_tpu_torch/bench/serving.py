@@ -23,12 +23,27 @@ s, ...], "R1 direct": [...], ...}.  A missing card is an error.  To
 compare two trees (a change and its parent) on one card, run it in each
 within one machine, in turns: A, B, B, A (KAAMER_BENCH_CACHE shares the
 database).
+
+    python -m kaamer_tpu_torch.bench.serving --first none|warmup --db PATH
+
+is one side of chip_smoke.py's warmup phase, meant for a fresh process:
+it loads the database at PATH onto the card and serves R1, R3 and R4
+twice each.  With `none` the first R1 and a second one are served in
+this thread under torch.profiler and cProfile, with the client in a
+child process (Python 3.12's cProfile sees every thread), and the first
+R1's wall over the second's is split into CUDA API time by call,
+cuBLAS's first use, Python and C functions (first_request_split); with
+`warmup`, engine.warmup() runs first, timed, with its dispatches and
+the device memory it leaves.  The last line is one JSON object with the
+walls, the figures and each body's sha256.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import cProfile
+import hashlib
 import io
 import json
 import os
@@ -168,6 +183,253 @@ def profile_request(engine, name: str, route: str, fields: dict,
     print(out.getvalue().strip())
 
 
+@contextlib.contextmanager
+def counting_calls(obj, names):
+    """Count the calls of obj's methods `names` made within the block
+    (through instance attributes that wrap them); yields {name: calls}."""
+    counts = dict.fromkeys(names, 0)
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            counts[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    for name in names:
+        setattr(obj, name, counted(name, getattr(obj, name)))
+    try:
+        yield counts
+    finally:
+        for name in names:
+            del obj.__dict__[name]
+
+
+def _api_bucket(name: str) -> str:
+    """The first-request split's bucket of a CUDA runtime or driver call."""
+    if name.startswith(("cudaHostAlloc", "cudaMallocHost", "cuMemHostAlloc")):
+        return "cudaHostAlloc"
+    if name.startswith(("cudaMalloc", "cuMemAlloc", "cuMemCreate")):
+        return "cudaMalloc"
+    if name.startswith(("cuModuleLoad", "cuLibraryLoad", "cuModuleGetFunction",
+                        "cuLibraryGetKernel", "cudaGetFuncBySymbol")):
+        return "module loads"
+    if "Launch" in name:
+        return "kernel launches"
+    if "Memcpy" in name or "Synchronize" in name:
+        return "copies and waits"
+    return "other API"
+
+
+class _Profiled:
+    """One POST handled in this thread under torch.profiler and cProfile:
+    the handler's wall inside both, CUDA API seconds and calls by bucket,
+    the aten::mm calls as (host seconds outside CUDA API calls, CUDA API
+    seconds inside), and cProfile's own seconds of each function."""
+
+    def __init__(self, wall: float, events: list, stats: dict):
+        self.wall = wall
+        api = [e for e in events if e.get("ph") == "X"
+               and ("runtime" in e.get("cat", "") or
+                    "driver" in e.get("cat", ""))]
+        self.api = {}
+        for e in api:
+            n, t = self.api.get(_api_bucket(e["name"]), (0, 0.0))
+            self.api[_api_bucket(e["name"])] = (n + 1, t + e["dur"] / 1e6)
+        self.mm = []
+        for e in sorted((e for e in events if e.get("cat") == "cpu_op"
+                         and e.get("name") == "aten::mm"),
+                        key=lambda e: e["ts"]):
+            inside = sum(a["dur"] for a in api
+                         if e["ts"] <= a["ts"] <= e["ts"] + e["dur"]) / 1e6
+            self.mm.append((e["dur"] / 1e6 - inside, inside))
+        # (file, line, name) -> own seconds; file "~" marks C functions
+        self.own = {k: v[2] for k, v in stats.items()}
+
+
+def _profiled_post(httpd, url: str, fields: dict, tmp: str) -> tuple:
+    """POST the form to httpd, a one-thread server, from a client process,
+    and handle it in this thread under torch.profiler (CPU ops and CUDA
+    activity) and cProfile.  Returns (_Profiled, response body)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    handler = httpd.RequestHandlerClass
+    orig = handler.do_POST
+    out = {}
+
+    def do_post(self):
+        pr = cProfile.Profile()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pr.enable()
+            t0 = time.perf_counter()
+            try:
+                orig(self)
+            finally:
+                out["wall"] = time.perf_counter() - t0
+                pr.disable()
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            out["events"] = json.load(f)["traceEvents"]
+        os.remove(trace)
+        out["stats"] = pstats.Stats(pr).stats
+
+    form, body = os.path.join(tmp, "form.json"), os.path.join(tmp, "body")
+    with open(form, "w") as f:
+        json.dump({"type": "string", **fields}, f)
+    client = subprocess.Popen([sys.executable, "-c", (
+        "import json, sys, urllib.parse, urllib.request\n"
+        "form = json.load(open(sys.argv[2]))\n"
+        "data = urllib.parse.urlencode(form).encode()\n"
+        "r = urllib.request.urlopen(urllib.request.Request(sys.argv[1], "
+        "data=data), timeout=600)\n"
+        "open(sys.argv[3], 'wb').write(r.read())\n"), url, form, body])
+    handler.do_POST = do_post
+    try:
+        httpd.handle_request()
+    finally:
+        handler.do_POST = orig
+    if client.wait(timeout=600) != 0:
+        raise RuntimeError(f"the client process exited {client.returncode}")
+    with open(body, "rb") as f:
+        return _Profiled(out["wall"], out["events"], out["stats"]), f.read()
+
+
+def first_request_split(first: _Profiled, warm: _Profiled) -> dict:
+    """The first request's wall over a warm one's, split into disjoint
+    parts: CUDA API seconds by bucket (first minus warm), cuBLAS's first
+    use (the first aten::mm's host time outside CUDA API calls, over a
+    warm one's median), cProfile's own time of Python functions and of
+    the other C functions (first minus warm; CUDA API calls and cuBLAS
+    happen inside C functions, so those are subtracted), and the
+    remainder."""
+    split = {"first s": first.wall, "warm s": warm.wall,
+             "excess s": first.wall - warm.wall}
+    api_total = 0.0
+    for b in ("cudaMalloc", "cudaHostAlloc", "module loads",
+              "kernel launches", "copies and waits", "other API"):
+        (n1, t1), (n2, t2) = (p.api.get(b, (0, 0.0)) for p in (first, warm))
+        split[f"{b} s"] = t1 - t2
+        split[f"{b} calls"] = [n1, n2]
+        api_total += t1 - t2
+    cublas = 0.0
+    if first.mm and warm.mm:
+        base = float(np.median([h for h, _ in warm.mm]))
+        cublas = first.mm[0][0] - base
+        split["first aten::mm [host s, CUDA API s]"] = list(first.mm[0])
+        split["warm aten::mm host s (median)"] = base
+    split["cuBLAS first use s"] = cublas
+
+    def own(p, c_functions):
+        return sum(t for k, t in p.own.items() if (k[0] == "~") == c_functions)
+
+    py = own(first, False) - own(warm, False)
+    c_other = own(first, True) - own(warm, True) - api_total - cublas
+    split["Python functions s"] = py
+    split["other C functions s"] = c_other
+    split["remainder s"] = (split["excess s"] - api_total - cublas - py
+                            - c_other)
+    top = sorted(((t - warm.own.get(k, 0.0), k) for k, t in first.own.items()),
+                 reverse=True)[:10]
+    split["top functions (first - warm s)"] = [
+        [f"{os.path.basename(k[0])}:{k[1]}:{k[2]}" if k[0] != "~" else k[2],
+         d] for d, k in top]
+    return split
+
+
+def first_requests(db_path: str, warm: bool) -> dict:
+    """One side of chip_smoke.py's warmup phase, for a fresh process: load
+    the database onto the card, then R1, R3 and R4 twice each over HTTP.
+    warm=False: the first R1 and a second one are handled in this thread
+    under both profilers and split (first_request_split), then the rest go
+    through the threaded server.  warm=True: engine.warmup() first, timed,
+    with its dispatches and the device memory it leaves.  Returns the
+    walls, the figures and each body's sha256."""
+    import torch
+    from http.server import HTTPServer
+
+    from ..index.artifact import load_db
+    from ..search.engine import SearchEngine
+    from ..server.app import make_handler, web_dirs
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("first_requests needs a card")
+    card = card_line()
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    art = load_db(db_path)
+    engine = SearchEngine(art, device)
+    torch.cuda.synchronize(device)
+    out = {"side": "warmup" if warm else "no warmup",
+           "load s": time.perf_counter() - t0,
+           "resident bytes": torch.cuda.memory_allocated(device)}
+    reqs = [r for r in smoke_requests(art, np.random.default_rng(2026))[1]
+            if r[0] in ("R1", "R3", "R4")]
+    tmp = tempfile.mkdtemp(prefix="kaamer_first_")
+    if warm:
+        stats = dict(engine.stats)
+        torch.cuda.reset_peak_memory_stats(device)
+        with counting_calls(engine, ("dispatch_batch", "_dispatch_group",
+                                     "_warm_p2")) as counts:
+            t0 = time.perf_counter()
+            engine.warmup()
+            torch.cuda.synchronize(device)
+            out["warmup s"] = time.perf_counter() - t0
+        if engine.stats != stats:
+            raise RuntimeError(f"warmup changed stats: {engine.stats}")
+        out["warmup dispatches"] = counts
+        out["reserved bytes"] = torch.cuda.memory_reserved(device)
+        out["peak allocated bytes"] = torch.cuda.max_memory_allocated(device)
+        print(f"warmup: {out['warmup s']} s; phase 1: "
+              f"{counts['dispatch_batch']} batches "
+              f"({counts['_dispatch_group']} phase-2 chunks); phase 2: "
+              f"{counts['_warm_p2']} zero-input dispatches; reserved "
+              f"{out['reserved bytes']} bytes, peak allocated "
+              f"{out['peak allocated bytes']} (resident "
+              f"{out['resident bytes']}) [{card}]", flush=True)
+    walls, sha = {}, {}
+
+    def keep(name, body, wall):
+        digest = hashlib.sha256(body).hexdigest()
+        if sha.setdefault(name, digest) != digest:
+            raise RuntimeError(f"{name}: the second body differs")
+        walls.setdefault(name, []).append(wall)
+
+    if not warm:
+        name, route, fields, _ = reqs[0]
+        httpd = HTTPServer(("127.0.0.1", 0),
+                           make_handler(engine, tmp, web_dirs()))
+        url = (f"http://127.0.0.1:{httpd.server_address[1]}/api/search/"
+               f"{route}")
+        runs = [_profiled_post(httpd, url, fields, tmp) for _ in range(2)]
+        httpd.server_close()
+        for prof, body in runs:
+            keep(name, body, prof.wall)
+        out["split"] = first_request_split(runs[0][0], runs[1][0])
+        sp = out["split"]
+        print(f"first R1 split (no warmup; handler walls under torch.profiler"
+              f" and cProfile): " + "; ".join(
+                  f"{k} {v}" for k, v in sp.items()
+                  if not k.startswith("top")) + f" [{card}]", flush=True)
+        print(f"first R1 own time by function, first - warm (cProfile): "
+              f"{sp['top functions (first - warm s)']}", flush=True)
+    with Served(engine) as url:
+        for name, route, fields, _ in reqs:
+            for _ in range(2 if name not in walls else 1):
+                status, body, wall = post(url + route,
+                                          {"type": "string", **fields})
+                if status != 200:
+                    raise RuntimeError(f"{name}: HTTP {status}")
+                keep(name, body, wall)
+    out.update(walls=walls, sha256=sha)
+    print(f"{out['side']}: " + "; ".join(
+        f"{n} first {w[0]} s, warm {w[-1]} s" for n, w in walls.items())
+        + (" (R1's two walls are the profiled handler walls; a third, "
+           f"unprofiled over HTTP: {walls['R1'][-1]} s)" if not warm else "")
+        + f" [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--proteins", type=int, default=1_000_000)
@@ -175,7 +437,14 @@ def main() -> int:
     ap.add_argument("--requests", default="R1,R2",
                     help="comma-separated subset of R1-R5")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--first", choices=("none", "warmup"),
+                    help="serve R1, R3, R4 from a fresh process with no "
+                    "warmup (the first R1 split) or after engine.warmup()")
+    ap.add_argument("--db", help="the database --first serves")
     args = ap.parse_args()
+    if args.first:
+        print(json.dumps(first_requests(args.db, args.first == "warmup")))
+        return 0
 
     import torch
 

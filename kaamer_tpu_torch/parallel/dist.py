@@ -47,7 +47,8 @@ from ..search.engine import (G_QUANTA, HOT_DENSE_BYTES, MAX_EXPANSION_ELEMS,
                              TOPK_MIN, PositionBitmapServing, QueryCounts,
                              _cap_bucket_vec, _cap_floor,
                              _finalize_pending, _next_pow2,
-                             _plan_normal_chunks)
+                             _plan_normal_chunks, _tally, _warm_batches,
+                             _warm_step, _warming)
 from ..upload import upload_each
 from . import comm
 from .mesh import (ShardedIndexArrays, shard_index, sharded_group,
@@ -146,6 +147,8 @@ class ShardedSearchEngine(PositionBitmapServing):
     CAP_MAX = 1 << 18  # per shard
     RERUN_B = 16
     GROUP_B = 256
+    # the JAX sharded engine's cap ladder (parallel/dist.py:107)
+    WARM_CAPS = (CAP_MIN, 96, 128, 192, 256, 320, 384, 512)
 
     def __init__(self, art, mesh=None, hot: bool = True):
         """mesh: a Mesh, a [dp][shard] grid of devices, or None for
@@ -472,7 +475,7 @@ class ShardedSearchEngine(PositionBitmapServing):
         pos_dev = positions and self._pos_on_device(
             cap, k_full if hot else k2, L, G)
         codes, n_k = self._upload_rows(wire2, n2)
-        self.stats["hot" if hot else "cold"] += 1
+        _tally(self.stats, "hot" if hot else "cold")
         outs = sharded_group(
             self.tables, self.postings, codes, n_k,
             hash_log2=self.sharded.hash_log2, cap=cap, k=k2, width=width,
@@ -481,6 +484,58 @@ class ShardedSearchEngine(PositionBitmapServing):
             # whole group's outputs
             replicate_out=self.mesh.world > 1)
         return outs, pos_dev
+
+    # ------------------------------------------------------------------
+    # warmup / host fallback
+    # ------------------------------------------------------------------
+
+    def warmup(self, batch_sizes=(16, 2048), lengths=(64, 128, 256, 512),
+               positions=(False, True), caps=None) -> None:
+        """Run the serving shape grid once on synthetic inputs, in the JAX
+        sharded engine's order (parallel/dist.py:543-572): one
+        dispatch_batch -> resolve_batch per (positions, B, L), then per
+        (positions, hot, cap, L) one group of G empty rows through
+        _dispatch_group(..., identity=True) for each width G that
+        _quantized_groups(cap, max(batch_sizes), hot, L) allows.  The
+        contract of SearchEngine.warmup holds: the calling thread, each
+        device's current stream (every tensor names its device), no
+        emptied cache, stats unchanged, the same answers, the same error
+        policy.
+
+        On a multi-process mesh every group step joins comm.dp_all_gather,
+        so every process must call warmup with the same arguments at the
+        same point of its batch sequence: each then runs the same grid in
+        the same order.  There a refused shape or an out-of-memory error
+        raises instead of being skipped or stopping the warmup, since a
+        process that left out a step would leave its peers waiting in the
+        gather."""
+        caps = tuple(caps) if caps else self.WARM_CAPS
+        strict = self.mesh.world > 1
+        with _warming():
+            if not _warm_batches(self, batch_sizes, lengths, positions,
+                                 strict):
+                return
+            B_max = max(batch_sizes)
+            k_full = _next_pow2(max(10, TOPK_MIN))
+            hots = (False, True) if self.hot_starts is not None else (False,)
+            for pos in positions:
+                for hot in hots:
+                    for capv in caps:
+                        for L in lengths:
+                            for G in self._quantized_groups(capv, B_max, hot,
+                                                            L):
+                                if not _warm_step(
+                                        f"group {'hot' if hot else 'cold'} "
+                                        f"G={G} L={L} cap={capv} "
+                                        f"positions={pos}",
+                                        lambda: self._dispatch_group(
+                                            self._pack([""] * G,
+                                                       L + KMER_SIZE - 1),
+                                            np.zeros(G, np.int64),
+                                            list(range(G)), G, capv, k_full,
+                                            L, pos, hot, identity=True),
+                                        strict):
+                                    return
 
     # ------------------------------------------------------------------
     # host fallback

@@ -34,6 +34,9 @@ starts of a query past CAP_MAX.
 
 from __future__ import annotations
 
+import contextlib
+import sys
+import threading
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -406,6 +409,67 @@ def _phase2_hot_legacy_impl(postings, M, hot_starts, offs, cum_s, wstart,
         found, MT, hot_starts, offs, whot, run_start, hit_rows, counts)
 
 
+# Whether this thread is running an engine's warmup: its dispatches leave
+# engine.stats as they were (a thread-local, so a request served alongside
+# the warmup thread still counts its own chunks).
+_WARMING = threading.local()
+
+
+@contextlib.contextmanager
+def _warming():
+    _WARMING.on = True
+    try:
+        yield
+    finally:
+        _WARMING.on = False
+
+
+def _tally(stats: Dict[str, int], key: str, n: int = 1) -> None:
+    """stats[key] += n, except in a thread running a warmup."""
+    if not getattr(_WARMING, "on", False):
+        stats[key] += n
+
+
+def _warm_step(what: str, fn, strict: bool = False) -> bool:
+    """Run one warmup dispatch, fn(), under the warmup's error policy.
+    A shape the engine refuses on its own terms (ValueError) is skipped
+    with one line; an out-of-memory error returns False, which stops the
+    warmup, with one line; any other exception propagates.  strict=True
+    propagates those two as well."""
+    try:
+        fn()
+    except torch.cuda.OutOfMemoryError as e:
+        if strict:
+            raise
+        print(f"warmup: stopped at {what}: out of memory: "
+              f"{str(e).splitlines()[0]}", file=sys.stderr, flush=True)
+        return False
+    except ValueError as e:
+        if strict:
+            raise
+        print(f"warmup: skipped {what}: {e}", file=sys.stderr, flush=True)
+    return True
+
+
+def _warm_batches(engine, batch_sizes, lengths, positions,
+                  strict: bool = False) -> bool:
+    """A warmup's phase 1 and scheduler: one dispatch_batch ->
+    resolve_batch per (positions, B, L) on the JAX warmup's synthetic
+    queries (engine.py:1030-1041).  False when the warmup must stop."""
+    for pos in positions:
+        for B in batch_sizes:
+            for L in lengths:
+                seq = "A" * min(L + KMER_SIZE - 1, 64)
+                sizes = [len(seq) - KMER_SIZE + 1] * (B - 1) + [L]
+                if not _warm_step(
+                        f"phase 1 B={B} L={L} positions={pos}",
+                        lambda: engine.resolve_batch(engine.dispatch_batch(
+                            [seq] * B, sizes, k=10, positions=pos)),
+                        strict):
+                    return False
+    return True
+
+
 class _HostFetch:
     """The device_get that _finalize_pending calls: one pass moving every
     chunk's outputs to the host in the JAX engine's host dtypes -- int64
@@ -751,9 +815,10 @@ class SearchEngine(PositionBitmapServing):
     def schedule_batch(self, handle):
         """Group the batch's queries by their exact phase-1 totals and
         enqueue every phase-2 chunk (the JAX engine's schedule_batch
-        without warmup cap pinning): hot queries first, outliers above the
-        group budget in narrow chunks at the pow2 cap they need, beyond
-        CAP_MAX a query counted on the host."""
+        without the cap pinning of its warmup's batches: the port's warmup
+        reaches the cap ladder through _warm_p2): hot queries first,
+        outliers above the group budget in narrow chunks at the pow2 cap
+        they need, beyond CAP_MAX a query counted on the host."""
         if handle is None:
             return None
         outs1, sizes, k, L, positions = handle
@@ -861,7 +926,7 @@ class SearchEngine(PositionBitmapServing):
                 j += len(rows)
         n_primary = len(pending)
         if flagged:
-            self.stats["rerun_rows"] += len(flagged)
+            _tally(self.stats, "rerun_rows", len(flagged))
             pending.extend(self._dispatch_legacy(rerun_ctx, flagged))
         _finalize_pending(pending[:n_primary], results, sizes,
                           B, batch_ids, self, min_top, partial=True)
@@ -939,19 +1004,19 @@ class SearchEngine(PositionBitmapServing):
         if hot or legacy:
             bitmaps["MT"] = self.MT
         if legacy:
-            self.stats["legacy"] += 1
+            _tally(self.stats, "legacy")
             return _phase2_hot_legacy_impl(
                 self.postings, self.M, self.hot_starts, offs, cum_s, wstart,
                 whot, cum_t, lens_l, cap_s=cap_s, cap_t=cap_t, k=k_full,
                 **bitmaps), pos_dev
         if hot:
-            self.stats["hot"] += 1
+            _tally(self.stats, "hot")
             return _phase2_hot_impl(
                 self.postings, self.M, self.hot_starts, offs, cum_s, wstart,
                 whot, cum_t, lens_l, cap_s=cap_s, cap_t=cap_t, k=k_full,
                 pack_w_bits=self._pack_w_bits(L), k_cold=self._k_cold,
                 **bitmaps), pos_dev, True
-        self.stats["cold"] += 1
+        _tally(self.stats, "cold")
         outs2 = _phase2_grouped_impl(self.postings, offs, cum_s, wstart,
                                      cum_t, lens_l, cap_s=cap_s, cap_t=cap_t,
                                      k=k2, **bitmaps)
@@ -988,3 +1053,82 @@ class SearchEngine(PositionBitmapServing):
         qc._offs = offs
         qc._lens = lens
         return qc
+
+    # The JAX engine's expansion-cap ladder (engine.py:1006-1009): the cap
+    # buckets a skewed workload's scheduler emits.
+    WARM_CAPS = (CAP_MIN, 80, 96, 128, 160, 192, 256, 320, 384, 512)
+
+    def warmup(self, batch_sizes=(16, 2048), lengths=(64, 128, 256, 512),
+               positions=(False, True), caps=None,
+               cap_ts=(0, 32, 128)) -> None:
+        """Run the serving shape grid once on synthetic inputs, most
+        likely shapes first, in the JAX engine's order (engine.py:
+        1011-1064): one dispatch_batch -> resolve_batch per (positions, B,
+        L), then for each (positions, hot, cap_t, cap, L) one zero-input
+        phase-2 dispatch (_warm_p2) per group width G that
+        _quantized_groups(cap + 128 cap_t, max(batch_sizes), hot, L)
+        allows.  torch compiles nothing, so what a process's first
+        requests find ready is the caching allocator's blocks of each
+        shape, the cuBLAS handle and its GEMM choices, the lazily loaded
+        kernels and the pinned staging blocks.
+
+        It runs on the calling thread and on the engine's device, on that
+        device's current stream (the one the request threads use: the
+        allocator pools blocks per stream), and empties no cache.  The
+        request path sets no thread-local torch mode, so neither does
+        warmup.  engine.stats is left as it was, also while a request is
+        served alongside it, and no answer changes.
+
+        Errors: where the JAX warmup ignores every exception, this one
+        skips a shape the engine refuses on its own terms (ValueError)
+        with one line on stderr, stops at an out-of-memory error with one
+        line, and lets any other exception (a CUDA error) propagate."""
+        caps = tuple(caps) if caps else self.WARM_CAPS
+        with _warming():
+            if not _warm_batches(self, batch_sizes, lengths, positions):
+                return
+            B_max = max(batch_sizes)
+            k_full = _next_pow2(max(10, TOPK_MIN))
+            hots = (False, True) if self.hot_starts is not None else (False,)
+            for pos in positions:
+                for hot in hots:
+                    kind = "hot" if hot else "cold"
+                    for cap_t in cap_ts:
+                        for capv in caps:
+                            cap_eff = capv + 128 * cap_t
+                            for L in lengths:
+                                for G in self._quantized_groups(
+                                        cap_eff, B_max, hot, L):
+                                    if not _warm_step(
+                                            f"phase 2 {kind} G={G} L={L} "
+                                            f"cap={capv} cap_t={cap_t} "
+                                            f"positions={pos}",
+                                            lambda: self._warm_p2(
+                                                G, L, capv, cap_t, k_full,
+                                                pos, hot)):
+                                        return
+
+    def _warm_p2(self, G: int, L: int, cap: int, cap_t: int, k_full: int,
+                 pos: bool, hot: bool) -> None:
+        """One phase-2 dispatch of exactly G rows (the port dispatches a
+        chunk's rows, unpadded) at (L, cap, cap_t), on slice starts of
+        miss_start and zero run tables, with the bitmap gate, pack width
+        and k_cold that _dispatch_group passes (engine.py:1066-1086).  The
+        outputs are dropped unread."""
+        z = torch.zeros((G, L), dtype=torch.int64, device=self.device)
+        offs = torch.full((G, L), self.miss_start, dtype=torch.int64,
+                          device=self.device)
+        cap_e = cap + 128 * cap_t
+        if hot:
+            _phase2_hot_impl(
+                self.postings, self.M, self.hot_starts, offs, z, z + 1, z,
+                z, z, cap_s=cap, cap_t=cap_t, k=k_full,
+                pack_w_bits=self._pack_w_bits(L), k_cold=self._k_cold,
+                run_start=z, MT=self.MT,
+                positions=pos and _positions_on_device(cap_e, k_full, L, G))
+        else:
+            k2 = min(k_full, cap_e)
+            _phase2_grouped_impl(
+                self.postings, offs, z, z + 1, z, z, cap_s=cap, cap_t=cap_t,
+                k=k2, run_start=z,
+                positions=pos and _positions_on_device(cap_e, k2, L, G))

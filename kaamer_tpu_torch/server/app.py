@@ -24,6 +24,7 @@ import os
 import select
 import socket
 import tempfile
+import threading
 import time
 import urllib.parse
 import uuid
@@ -326,9 +327,21 @@ def load_engine(db_path: str, device="cuda", n_shards: int = 0):
 def serve(db_path: str, port: int = 8321, device="cuda",
           tmp_folder: str = "/tmp/", n_shards: int = 0) -> None:
     """Load a database onto `device` (load_engine) and serve it, with the
-    static routes, until interrupted."""
-    httpd = make_server(load_engine(db_path, device, n_shards), port,
-                        tmp_folder)
+    static routes, until interrupted.  The engine's warmup runs in a
+    daemon thread meanwhile (kaamer_tpu/server/app.py:313-316), so that
+    the first requests find the serving shapes warm; it prints one line
+    when it ends.  An exception it lets through prints its traceback and
+    ends that thread, not the server."""
+    engine = load_engine(db_path, device, n_shards)
+    httpd = make_server(engine, port, tmp_folder)
+
+    def warm():
+        t0 = time.time()
+        engine.warmup()
+        print(f" + serving-shape warmup ended in {time.time() - t0:.1f}s",
+              flush=True)
+
+    threading.Thread(target=warm, daemon=True).start()
     print(f" + kaamer-tpu-torch server listening on port {port}")
     try:
         httpd.serve_forever()

@@ -2,7 +2,8 @@
 test_multihost.py's production-engine test on torch.distributed (gloo).
 Both processes, each a (1, 4) grid of "cpu" devices joined along dp,
 serve a shard-built artifact and must stream the bytes of a
-single-process (2, 4) grid, and of each other."""
+single-process (2, 4) grid, and of each other; also after both ran the
+same ShardedSearchEngine.warmup grid."""
 
 import os
 import socket
@@ -30,6 +31,34 @@ def _free_port() -> int:
 
 
 def test_two_process_engine_streams_identical_bytes(tmp_path):
+    _two_process_run(tmp_path, [DRIVER])
+
+
+# mh_torch_engine_driver.py with every ShardedSearchEngine warmed as it
+# is built: both processes run the same grid in the same order (their
+# group steps join the dp gathers), which must leave stats at zero
+WARMED = f"""
+import runpy, sys
+from kaamer_tpu_torch.parallel import dist
+init = dist.ShardedSearchEngine.__init__
+def warmed(self, *a, **kw):
+    init(self, *a, **kw)
+    self.warmup(batch_sizes=(16,), lengths=(16, 32), positions=(False, True),
+                caps=(64, 128))
+    assert self.stats == {{"cold": 0, "hot": 0}}, self.stats
+dist.ShardedSearchEngine.__init__ = warmed
+sys.argv[0] = {DRIVER!r}
+runpy.run_path({DRIVER!r}, run_name="__main__")
+"""
+
+
+def test_two_process_warmup_then_identical_bytes(tmp_path):
+    """Both processes warm the same grid, then stream the single-process
+    bytes."""
+    _two_process_run(tmp_path, ["-c", WARMED])
+
+
+def _two_process_run(tmp_path, program):
     rng = np.random.default_rng(21)
     aa = list("ACDEFGHIKLMNPQRSTVWY")
     doms = ["".join(rng.choice(aa, size=int(rng.integers(18, 40))))
@@ -59,7 +88,7 @@ def test_two_process_engine_streams_identical_bytes(tmp_path):
                    KAAMER_NUM_PROCESSES="2", KAAMER_PROCESS_ID=str(pid),
                    PYTHONPATH=repo, OMP_NUM_THREADS="1")
         procs.append(subprocess.Popen(
-            [sys.executable, DRIVER, outs[-1], dbdir, qfasta], env=env,
+            [sys.executable, *program, outs[-1], dbdir, qfasta], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     fails = []
     for pid, p in enumerate(procs):
