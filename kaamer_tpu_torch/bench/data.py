@@ -1,7 +1,7 @@
-"""The skewed benchmark database and its queries (the root bench.py's
-build_skewed_db, make_queries and ensure_db, copied unchanged onto the
-port's own build_db and load_db): the same seed builds the same artifact,
-byte for byte, so H100 runs stay comparable across PRs.  Translated
+"""The benchmark databases and their queries (the root bench.py's
+build_skewed_db, build_synthetic_db, make_queries and ensure_db, copied
+unchanged onto the port's own build_db and load_db): the same seed builds
+the same artifact, byte for byte, so H100 runs stay comparable across PRs.  Translated
 queries (FASTQ reads, nucleotide contigs) are reverse-translated with
 bench.py's codon table.
 
@@ -22,7 +22,10 @@ from ..index.artifact import load_db
 from ..index.build import build_db
 from ..search.orf import reverse_complement
 
+DB_PROTEINS = 10_000
 N_QUERIES = 16_384
+BATCH = 2048
+SEQ_LEN_RANGE = (120, 400)
 QUERY_LEN = 250  # uniform bucket so every batch hits one compiled shape
 
 # Databases live inside the repo (gitignored .bench_cache/ at its root), or
@@ -78,6 +81,20 @@ def build_skewed_db(path: str, n_proteins: int, seed: int = 77,
     fasta = path + ".fasta"
     write_skewed_fasta(fasta, n_proteins, seed)
     build_db(path, fasta, "fasta", n_shards=n_shards)
+    os.remove(fasta)
+
+
+def build_synthetic_db(path: str, n_proteins: int = DB_PROTEINS) -> None:
+    """Uniformly random proteins (the flattering regime: tiny postings
+    lists; kept for bench.py's continuity figure), seed 1234."""
+    rng = np.random.default_rng(1234)
+    fasta = path + ".fasta"
+    with open(fasta, "w") as f:
+        for i in range(n_proteins):
+            L = int(rng.integers(*SEQ_LEN_RANGE))
+            seq = "".join(rng.choice(AA, size=L))
+            f.write(f">P{i:06d} synthetic\n{seq}\n")
+    build_db(path, fasta, "fasta")
     os.remove(fasta)
 
 

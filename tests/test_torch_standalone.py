@@ -35,7 +35,9 @@ def _port_modules():
 
 def _port_files():
     root = os.path.join(REPO, "kaamer_tpu_torch")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "bin", "kaamer-torch"),
+             os.path.join(REPO, "bin", "kaamer-db-torch")]
     for d, _, names in os.walk(root):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -51,7 +53,9 @@ def test_import_every_module_loads_no_jax_package():
         "kaamer_tpu_torch.bench.serving", "kaamer_tpu_torch.parallel.dist",
         "kaamer_tpu_torch.parallel.comm", "kaamer_tpu_torch.index.merge",
         "kaamer_tpu_torch.index.backup", "kaamer_tpu_torch.server.client",
-        "kaamer_tpu_torch.bench.harness", "kaamer_tpu_torch.cli"} <= set(mods)
+        "kaamer_tpu_torch.bench.harness", "kaamer_tpu_torch.cli",
+        "kaamer_tpu_torch.bench.entry", "kaamer_tpu_torch.bench.throughput",
+        "kaamer_tpu_torch.bench.cpu_baseline"} <= set(mods)
     files = {os.path.relpath(p, REPO) for p in _port_files()}
     assert {"kaamer_tpu_torch/search/orf.py",
             "kaamer_tpu_torch/search/gcode.py",
@@ -59,7 +63,11 @@ def test_import_every_module_loads_no_jax_package():
             "kaamer_tpu_torch/index/backup.py",
             "kaamer_tpu_torch/server/client.py",
             "kaamer_tpu_torch/bench/harness.py",
-            "kaamer_tpu_torch/cli.py"} <= files
+            "kaamer_tpu_torch/cli.py",
+            "kaamer_tpu_torch/bench/entry.py",
+            "kaamer_tpu_torch/bench/throughput.py",
+            "kaamer_tpu_torch/bench/cpu_baseline.py",
+            "bin/kaamer-torch", "bin/kaamer-db-torch"} <= files
     code = (
         "import importlib, sys\n"
         f"for m in {mods + ['chip_smoke']!r}:\n"
