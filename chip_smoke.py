@@ -60,12 +60,21 @@ bench.py: the database comes from the port's own generator
      single-device engine's; sw_align launches per request, R2 and R5
      must launch it), R3 and R5 with the bitmap gate off, and the sync
      proof of step 6 on the sharded dispatch_batch and schedule_batch;
- 12. the dryrun_multichip twin (kaamer_tpu_torch.bench.multichip) on a
+ 12. legacy phase: the whole-batch sharded search step
+     (parallel/mesh.sharded_search) on the shard phase's grid and index:
+     R1's 2048 queries in batches of 64 (replicate_query_batch), each at
+     the next power of two of its largest total, halved past 2^22, every
+     query's (row, count) list starting with the hot single-device
+     engine's count_batch list; its position bits on R3's queries, and
+     member_bitmap on R3's hits, equal to member_np; gather_postings and
+     unpack_codes3 on the card equal to their CPU results; the phase's
+     seconds, largest cap and peak bytes;
+ 13. the dryrun_multichip twin (kaamer_tpu_torch.bench.multichip) on a
      (2, 2) grid of the cards, repeated as needed;
- 13. a shard-built (2-shard) skewed database of 100,000 proteins (or
+ 14. a shard-built (2-shard) skewed database of 100,000 proteins (or
      --proteins, if fewer): R1 and R3 bytes equal its global build's on
      SearchEngine;
- 14. lifecycle phase, at the same size, each step a subprocess of the
+ 15. lifecycle phase, at the same size, each step a subprocess of the
      port's CLI (python -m kaamer_tpu_torch.cli db|search ...): two
      -noindex halves of the same FASTA, -merge, -index, -backup, -restore
      and -gc, the restored artifact byte-equal to the global build;
@@ -77,7 +86,7 @@ bench.py: the database comes from the port's own generator
      opendb and a traced search (the trace must hold a CUDA kernel); and
      align_batch on R2's 256 pairs against the plain SW, its sw_align
      launches counted;
- 15. bench phase: the entry twin's search step (kaamer_tpu_torch.bench.
+ 16. bench phase: the entry twin's search step (kaamer_tpu_torch.bench.
      entry) on the card equal to its CPU run; the same-host CPU stand-in
      baseline (python -m kaamer_tpu_torch.bench.cpu_baseline) at 10k and
      --proteins; the throughput twin of bench.py (python -m
@@ -569,11 +578,9 @@ def host_kmers(seq: str) -> np.ndarray:
             | (pair(c[4:n + 4], c[5:n + 5]) << 5) | np.maximum(c[6:n + 6], 0))
 
 
-def reference_topk(art, seq: str, k: int):
-    """Top-k (rows, counts) of one query by numpy: probe the cuckoo table
-    on the host, count every k-mer position's postings with np.bincount
-    (each distinct slice once, weighted by its position count), rank by
-    (count desc, row asc)."""
+def host_slices(art, seq: str):
+    """(starts, lengths) int64 of each 7-mer position's postings slice,
+    by a probe of the cuckoo table on the host; a miss has length 0."""
     from kaamer_tpu_torch.index.hashtable import HASH_MULT, HASH_MULT2
 
     q = host_kmers(seq).astype(np.uint64)
@@ -590,6 +597,16 @@ def reference_topk(art, seq: str, k: int):
             start[hit] = rows[hit, s0 + 1]
             length[hit] = rows[hit, s0 + 2]
             found |= hit
+    return start, length
+
+
+def reference_topk(art, seq: str, k: int):
+    """Top-k (rows, counts) of one query by numpy: probe the cuckoo table
+    on the host, count every k-mer position's postings with np.bincount
+    (each distinct slice once, weighted by its position count), rank by
+    (count desc, row asc)."""
+    start, length = host_slices(art, seq)
+    found = length > 0  # every set in the table is non-empty
     slices, mult = np.unique(np.stack([start[found], length[found]], 1),
                              axis=0, return_counts=True)
     postings = np.asarray(art.postings)
@@ -1118,12 +1135,13 @@ def shard_sync(engine, queries) -> None:
               f" (the totals read); {len(got)} queries collected")
 
 
-def shard_phase(art, reqs, bodies, queries, card: str, cards) -> dict:
+def shard_phase(art, reqs, bodies, queries, card: str, cards):
     """ShardedSearchEngine on the 1M database, warmed (its seconds and
     reserved bytes), then R1-R5 over HTTP, each twice, each body equal to
     the hot single-device engine's; R3 and R5 again with the bitmap gate
     off; the sync proof.  Returns each kernel's launches per request,
-    counted from 0 just before each first pass."""
+    counted from 0 just before each first pass, and the engine's host
+    index arrays (ShardedIndexArrays)."""
     import gc
 
     import torch
@@ -1212,10 +1230,202 @@ def shard_phase(art, reqs, bodies, queries, card: str, cards) -> dict:
               f"{torch.cuda.max_memory_allocated(d)} bytes [{card}]")
     # the server's handler class holds the engine in a reference cycle:
     # free it before the next phases allocate
+    sharded = eng.sharded
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return per_request
+    return per_request, sharded
+
+
+# ---------------------------------------------------------------------------
+# legacy phase
+# ---------------------------------------------------------------------------
+
+# queries a sharded_search batch, and the largest expansion capacity a
+# batch may ask for before it is halved
+LEGACY_BATCH = 64
+LEGACY_CAP_MAX = 1 << 22
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def legacy_batches(totals, lo: int, hi: int, least: int):
+    """[(lo, hi, cap)] covering queries lo..hi-1: cap is the next power of
+    two of the batch's largest total; a batch whose cap would pass
+    LEGACY_CAP_MAX is halved until it fits or holds `least` queries."""
+    cap = _pow2(max(int(totals[lo:hi].max()), 1))
+    if cap <= LEGACY_CAP_MAX or hi - lo <= least:
+        return [(lo, hi, cap)]
+    mid = lo + (hi - lo) // 2
+    return (legacy_batches(totals, lo, mid, least)
+            + legacy_batches(totals, mid, hi, least))
+
+
+def legacy_phase(art, sharded, queries, ref, card: str, cards) -> dict:
+    """The whole-batch sharded search step (parallel/mesh.sharded_search)
+    and the functions only it runs, on the card, on shard_phase's grid
+    and index arrays:
+
+    - R1's queries in batches of LEGACY_BATCH (replicate_query_batch),
+      each at the next power of two of its largest total (the totals of a
+      first call at a small cap: they do not depend on cap), halved past
+      LEGACY_CAP_MAX; each query's (row, count) list must start with the
+      hot single-device engine's count_batch list (ref);
+    - positions on R3's queries: the packed bits of every (query, hit)
+      equal member_np's over the global artifact;
+    - member_bitmap on R3's hits against member_np, for every query;
+    - gather_postings (shard 0 of the first batch) and unpack_codes3 (the
+      first batch's codes) on the card equal to their CPU results.
+    Returns the phase's numbers."""
+    import torch
+
+    from kaamer_tpu_torch import codec
+    from kaamer_tpu_torch.ops import count
+    from kaamer_tpu_torch.parallel import mesh
+    from kaamer_tpu_torch.parallel.dist import Mesh
+    from kaamer_tpu_torch.upload import upload
+
+    grid = Mesh(shard_grid(cards))
+    devs = grid.distinct()
+    for d in devs:
+        torch.cuda.reset_peak_memory_stats(d)
+    t_phase = time.perf_counter()
+    tables, postings = mesh.grid_index(sharded, grid)
+    mult = grid.shape["dp"] * grid.shape["shard"]
+
+    def batch(lo, hi):
+        seqs = queries[lo:hi]
+        return mesh.replicate_query_batch(seqs, [len(q) - 6 for q in seqs],
+                                          mult)
+
+    def search(lo, hi, cap, positions=False):
+        codes, n_kmers = batch(lo, hi)
+        outs = mesh.sharded_search(
+            tables, postings, *mesh.grid_batch(codes, n_kmers, grid),
+            hash_log2=sharded.hash_log2, cap=cap, k=32, positions=positions)
+        return [o[: hi - lo].cpu().numpy() for o in outs]
+
+    n = len(queries)
+    totals = np.concatenate([
+        search(lo, min(lo + LEGACY_BATCH, n), 64)[2]
+        for lo in range(0, n, LEGACY_BATCH)])
+    plan = [b for lo in range(0, n, LEGACY_BATCH)
+            for b in legacy_batches(totals, lo, min(lo + LEGACY_BATCH, n),
+                                    mult)]
+    halved = len(plan) - -(-n // LEGACY_BATCH)
+    t0 = time.perf_counter()
+    for lo, hi, cap in plan:
+        counts, hits, tot = search(lo, hi, cap)
+        check((tot == totals[lo:hi]).all(), f"legacy: totals of queries "
+              f"{lo}..{hi} moved with cap")
+        for i in range(lo, hi):
+            rows, cnts = ref[i]
+            got = [(int(r), int(c)) for r, c in zip(hits[i - lo],
+                                                    counts[i - lo]) if c > 0]
+            want = list(zip(rows.tolist(), cnts.tolist()))
+            check(want and got[: len(want)] == want,
+                  f"legacy: query {i}: sharded_search {got[:len(want)]} "
+                  f"!= count_batch {want}")
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    caps = [c for _, _, c in plan]
+    cells = [[str(d) for d in r] for r in grid.devices]
+    print(f"legacy sharded_search on {cells}: {n} queries in {len(plan)} "
+          f"batches ({halved} more after halving past cap "
+          f"{LEGACY_CAP_MAX}), caps {min(caps)}-{max(caps)}, "
+          f"totals max {int(totals.max())}, mean {float(totals.mean())}; "
+          f"every (row, count) list == count_batch's; {search_s} s for "
+          f"the capped pass [{card}]")
+
+    # positions on R3's queries, and member_bitmap on their hits
+    r3 = min(64, n)
+    slices = [host_slices(art, q) for q in queries[:r3]]
+    postings_np = np.asarray(art.postings)
+    hits = np.zeros((r3, 32), np.int64)
+    n_pairs = 0
+    for lo, hi, cap in legacy_batches(totals, 0, r3, mult):
+        counts, hit_rows, _, bits = search(lo, hi, cap, positions=True)
+        hits[lo:hi] = hit_rows
+        for i in range(lo, hi):
+            live = counts[i - lo] > 0
+            unpacked = np.unpackbits(bits[i - lo], axis=-1,
+                                     bitorder="little").astype(bool)
+            start, length = slices[i]
+            want = count.member_np(postings_np, start, length,
+                                   hit_rows[i - lo][live].astype(np.uint32))
+            L = start.shape[0]
+            check(np.array_equal(unpacked[live, :L], want)
+                  and not unpacked[live, L:].any()
+                  and not unpacked[~live].any(),
+                  f"legacy: query {i}: sharded bits != member_np")
+            n_pairs += int(live.sum())
+    print(f"legacy positions on R3's {r3} queries: the bits of all "
+          f"{n_pairs} (query, hit) pairs == member_np")
+
+    device = grid.devices[0][0]
+    L = _pow2(max(s[0].shape[0] for s in slices))
+    offs = np.zeros((r3, L), np.int64)
+    lens = np.zeros((r3, L), np.int64)
+    for i, (start, length) in enumerate(slices):
+        offs[i, :start.shape[0]] = start
+        lens[i, :length.shape[0]] = length
+    longest = int(np.diff(np.asarray(art.set_offsets).astype(np.int64)).max())
+    iters = int(np.ceil(np.log2(longest + 1))) + 1
+    post_dev = upload(postings_np.view(np.int32), device)
+    args = [post_dev] + [torch.from_numpy(a).to(device)
+                         for a in (offs, lens, hits)] + [iters]
+    found = count.member_bitmap(*args).cpu().numpy()
+    for i in range(r3):
+        check(np.array_equal(found[i], count.member_np(
+            postings_np, offs[i], lens[i], hits[i].astype(np.uint32))),
+            f"legacy: member_bitmap of query {i} != member_np")
+    member_ms = median_ms(lambda: count.member_bitmap(*args), 20)
+    print(f"legacy member_bitmap on R3's hits [{r3}, 32, {L}], {iters} "
+          f"iterations (longest postings list {longest}): == member_np for "
+          f"every query; {member_ms} ms a call [{card}]")
+    del post_dev, args
+
+    # gather_postings and unpack_codes3 at the first batch's shapes
+    lo, hi, cap = plan[0]
+    codes, n_kmers = batch(lo, hi)
+    width = codes.shape[1]
+    c_dev = torch.from_numpy(codes).to(device)
+    n_dev = torch.from_numpy(n_kmers.astype(np.int64)).to(device)
+    offs_d, _, lens_u, wstart, _, _ = mesh._probe_dedup(
+        tables[0][0], c_dev, n_dev, sharded.hash_log2,
+        postings[0][0].shape[0], 0)
+    cum = torch.cumsum(lens_u, dim=1)
+    g_args = (postings[0][0], offs_d, cum, cum[:, -1], cap, wstart)
+    on_card = count.gather_postings(*g_args)
+    on_cpu = count.gather_postings(*(a.cpu() if torch.is_tensor(a) else a
+                                     for a in g_args))
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)),
+          "legacy: gather_postings on the card != on the CPU")
+    del on_card
+    gather_ms = median_ms(lambda: count.gather_postings(*g_args), 10)
+    wire = torch.from_numpy(codec.pack_codes3(codes.astype(np.int8))
+                            .view(np.int16))
+    wire_dev = wire.to(device)
+    un_cpu = codec.unpack_codes3(wire, width)
+    check(torch.equal(codec.unpack_codes3(wire_dev, width).cpu(), un_cpu)
+          and np.array_equal(un_cpu.numpy(), codes),
+          "legacy: unpack_codes3 on the card != on the CPU")
+    unpack_ms = median_ms(lambda: codec.unpack_codes3(wire_dev, width), 20)
+    print(f"legacy gather_postings on shard 0 of the first batch "
+          f"[{hi - lo} x {cap}] and unpack_codes3 of its codes "
+          f"{tuple(wire.shape)}: == the CPU's; {gather_ms} / {unpack_ms} ms "
+          f"a call [{card}]")
+    torch.cuda.synchronize()
+    out = {"wall s": time.perf_counter() - t_phase, "search s": search_s,
+           "batches": len(plan), "halved": halved, "cap max": max(caps),
+           "peak bytes": sum(torch.cuda.max_memory_allocated(d)
+                             for d in devs),
+           "member_bitmap ms": member_ms, "gather_postings ms": gather_ms,
+           "unpack_codes3 ms": unpack_ms}
+    print(f"legacy phase: {json.dumps(out)} [{card}]")
+    return out
 
 
 def dryrun_phase(cards) -> None:
@@ -1730,14 +1940,23 @@ def main() -> int:
     phase("profile")
     print(f"peak device memory with the hot engine: "
           f"{torch.cuda.max_memory_allocated(device)} bytes [{card}]")
+    # the legacy phase's yardstick: each R1 query's (row, count) list
+    legacy_ref = [(np.asarray(qc.hit_rows).astype(np.int64),
+                   np.asarray(qc.counts).astype(np.int64))
+                  for qc in engine.count_batch(
+                      queries, [len(q) - 6 for q in queries], k=16)]
     del engine
     cold_pass(art, device, reqs, bodies, card)
     phase("cold")
     warmup_phase(path, bodies, card)
     phase("warmup")
     cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    shard_launches = shard_phase(art, reqs, bodies, queries, card, cards)
+    shard_launches, sharded = shard_phase(art, reqs, bodies, queries, card,
+                                          cards)
     phase("shard")
+    legacy_phase(art, sharded, queries, legacy_ref, card, cards)
+    del sharded
+    phase("legacy")
     dryrun_phase(cards)
     phase("dryrun")
     shard_built_phase(min(args.proteins, 100_000), card, cards)

@@ -14,3 +14,7 @@ one device; tensors carry theirs).  Nothing here picks a device on its own
 or falls back from CUDA to the CPU: a CPU tensor runs the plain-torch
 version of a kernel, a CUDA tensor runs the hand-written kernel or raises.
 """
+
+__version__ = "0.1.0"
+
+KMER_SIZE = 7  # fixed, as in the reference (makedb.go:30, search.go:45)

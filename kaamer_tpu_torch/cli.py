@@ -4,12 +4,15 @@ kaamer_db_main: database lifecycle + server (reference cmd/kaamer-db/main.go)
 kaamer_main:    search client               (reference cmd/kaamer/main.go)
 
 Flag names, defaults, messages and return codes are the JAX package's,
-with two differences: -device (default cuda) picks the torch device the
-server runs on, and the download flags (-download and its -uniprot,
--refseq, -ncbi_nt, -kegg, -biocyc) are not ported, since every path of
-the downloader fetches from the network.  Run as:
+with one difference: -device (default cuda) picks the torch device the
+server runs on.  -download (io_formats/downloaddb.py) fetches from
+UniProt and NCBI by FTP, from NCBI eutils, KEGG and BioCyc over HTTP.
+Run as:
 
   python -m kaamer_tpu_torch.cli db -server -d DB [-p PORT] [-device cuda]
+  python -m kaamer_tpu_torch.cli db -download {-uniprot TAXON|-refseq TAXON
+                                    |-ncbi_nt ID} [-o OUT]
+  python -m kaamer_tpu_torch.cli db -download {-kegg|-biocyc} -d DB
   python -m kaamer_tpu_torch.cli db -make -i in.fasta -f fasta -d DB
                                     [-offset N -length N -noindex]
   python -m kaamer_tpu_torch.cli db -merge -dbs PARTS -o DB
@@ -31,6 +34,7 @@ def _db_parser() -> argparse.ArgumentParser:
     p.add_argument("-server", action="store_true", help="run the server")
     p.add_argument("-make", dest="make_db", action="store_true", help="make database")
     p.add_argument("-index", action="store_true", help="index database")
+    p.add_argument("-download", action="store_true", help="download datasets")
     p.add_argument("-merge", action="store_true", help="merge unindexed databases")
     p.add_argument("-gc", action="store_true", help="garbage-collect database")
     p.add_argument("-backup", action="store_true", help="backup database")
@@ -53,6 +57,12 @@ def _db_parser() -> argparse.ArgumentParser:
     p.add_argument("-length", type=int, default=None, help="number of proteins to process")
     p.add_argument("-maxsize", action="store_true", help="(accepted for compatibility)")
     p.add_argument("-noindex", action="store_true", help="skip the indexing pass")
+    # download options
+    p.add_argument("-uniprot", default="", help="uniprot taxon")
+    p.add_argument("-refseq", default="", help="refseq release taxon")
+    p.add_argument("-ncbi_nt", default="", help="NCBI nuccore genome id")
+    p.add_argument("-kegg", action="store_true", help="annotate KEGG pathways")
+    p.add_argument("-biocyc", action="store_true", help="annotate BioCyc pathways")
     # merge / backup / restore
     p.add_argument("-dbs", default="", help="directory of databases to merge")
     p.add_argument("-o", default="", help="output path")
@@ -73,6 +83,30 @@ def kaamer_db_main(argv=None) -> int:
 
         # -t is accepted and, as in the JAX package, unused by the server
         serve(args.d, args.p, args.device, args.tmp, n_shards=args.shards)
+        return 0
+
+    if args.download:
+        from .io_formats import downloaddb
+
+        if args.uniprot:
+            downloaddb.download_uniprot(args.o, args.uniprot)
+        elif args.refseq:
+            downloaddb.download_refseq(args.o, args.refseq)
+        elif args.kegg:
+            if not args.d:
+                print("No input db path !")
+                return 1
+            downloaddb.download_kegg(args.d)
+        elif args.biocyc:
+            if not args.d:
+                print("No input db path !")
+                return 1
+            downloaddb.download_biocyc(args.d)
+        elif args.ncbi_nt:
+            downloaddb.download_genbank_genome(args.ncbi_nt)
+        else:
+            print("Need uniprot, refseq, kegg or biocyc option !")
+            return 1
         return 0
 
     if args.make_db:

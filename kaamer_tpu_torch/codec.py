@@ -19,7 +19,9 @@ pkg/kvstore/k_store.go:39-145):
 
 The host packers (pad_codes_batch, pack_codes7, and the native packer) make
 the base-22 wire format; the device side unpacks the wire words and encodes
-7-mers.  The host 7-mer encoders are encode_kmers_np / encode_kmers_batch
+7-mers.  pack_codes3 / unpack_codes3 are the simpler 3-residue wire format
+(3 residues a uint16 word, 22^3 = 10648 < 2^16) that the JAX package keeps
+beside it.  The host 7-mer encoders are encode_kmers_np / encode_kmers_batch
 (kaamer_tpu.codec's encode_kmers / encode_kmers_batch); encode_kmers here
 is the device one.
 
@@ -151,6 +153,16 @@ def query_num_kmers(seq: str) -> int:
     return n
 
 
+def pack_codes3(codes: np.ndarray) -> np.ndarray:
+    """int8[B, W] residue codes (-1 = pad) -> uint16[B, ceil(W/3)]."""
+    B, W = codes.shape
+    W3 = -(-W // 3) * 3
+    c = np.full((B, W3), PAD3, dtype=np.uint16)
+    c[:, :W] = np.where(codes >= 0, codes, PAD3).astype(np.uint16)
+    c = c.reshape(B, W3 // 3, 3)
+    return c[:, :, 0] * 484 + c[:, :, 1] * 22 + c[:, :, 2]
+
+
 def pack_codes7(codes: np.ndarray) -> np.ndarray:
     """int8[B, W] residue codes (-1 = pad) -> uint32[B, ceil(W/7)].
 
@@ -192,6 +204,16 @@ def unpack_codes7(packed: torch.Tensor, width: int) -> torch.Tensor:
         digits.append((p // 22**k) % 22)
     digits.append(p % 22)
     c = torch.stack(digits, dim=-1).reshape(p.shape[0], -1)[:, :width]
+    return torch.where(c == PAD3, -1, c)
+
+
+def unpack_codes3(packed: torch.Tensor, width: int) -> torch.Tensor:
+    """Inverse of pack_codes3 (unpack_codes3_jnp): words in any integer
+    dtype (uint16, or int16, int32, int64: every word is below 2^15)
+    [B, ceil(W/3)] -> int64[B, width] residue codes, -1 for padding."""
+    p = packed.to(torch.int64)
+    c = torch.stack([p // 484, (p // 22) % 22, p % 22], dim=-1)
+    c = c.reshape(p.shape[0], -1)[:, :width]
     return torch.where(c == PAD3, -1, c)
 
 

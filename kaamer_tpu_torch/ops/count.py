@@ -64,6 +64,46 @@ def _fold(cum: torch.Tensor, cap: int, values):
     return seg, [v.gather(1, seg) for v in values]
 
 
+def gather_postings(postings, offs, cum, total, cap: int, wstart=None):
+    """Expand per-k-mer postings slices into a dense [B, cap] row multiset
+    (count.py:gather_postings), the single-tier expansion of the
+    whole-batch sharded search.
+
+    postings: int32[P] (uint32 rows), any length P > 0
+    offs:     int64[B, L] start offset of each lane's postings slice
+    cum:      int64[B, L] inclusive cumsum of the slice lengths
+    total:    int64[B]    entries per query that are valid (the JAX
+              contract takes it apart from cum[:, -1])
+    wstart:   optional int64[B, L] run weights (dedup_runs); when given,
+              each entry's weight comes back as a 4th output.
+    Returns (rows int64[B, cap], seg int64[B, cap] lane of each entry,
+    clamped to L-1, valid bool[B, cap][, w int64[B, cap]]); rows past
+    `total` are ROW_SENTINEL, and so is a read past the postings (the fill
+    of jnp.take).
+
+    Each entry j finds its lane seg = sum_l [cum_l <= j] by a right-sided
+    searchsorted, as _fold does, where the JAX function builds a
+    [B, L, chunk] comparison for the TPU's vector unit.  The lane's
+    exclusive start is cum at seg - 1 (0 for lane 0), and an entry past
+    cum[:, -1] (seg == L) has weight 0, as the JAX masks give."""
+    B, L = offs.shape
+    P = postings.shape[0]
+    j = torch.arange(cap, device=offs.device).expand(B, cap).contiguous()
+    seg = torch.searchsorted(cum.contiguous(), j, right=True)
+    seg_cl = seg.clamp(max=L - 1)
+    prev = torch.where(seg > 0, cum.gather(1, (seg - 1).clamp(min=0)), 0)
+    src = offs.gather(1, seg_cl) + (j - prev)
+    valid = j < total[:, None]
+    src = torch.where(valid, src, 0)
+    inside = src < P
+    rows = torch.where(valid & inside, as_u32(postings[src.clamp(max=P - 1)]),
+                       ROW_SENTINEL)
+    if wstart is None:
+        return rows, seg_cl, valid
+    w = torch.where(valid & (seg < L), wstart.gather(1, seg_cl), 0)
+    return rows, seg_cl, valid, w
+
+
 def expand_hybrid(postings, offs, cum_s, wstart, cum_t, lens_l,
                   cap_s: int, cap_t: int):
     """Two-tier postings expansion (count.py:expand_hybrid): short runs
@@ -192,6 +232,37 @@ def expand_run_bitmaps(found_u: torch.Tensor,
     at the next run, whose run_start is larger."""
     t = run_start[:, None, :] * 2 + found_u.to(run_start.dtype)
     return (torch.cummax(t, dim=2).values & 1).bool()
+
+
+def member_bitmap(postings: torch.Tensor, offs: torch.Tensor,
+                  lens: torch.Tensor, hits: torch.Tensor,
+                  iters: int) -> torch.Tensor:
+    """Position bitmaps by binary search on the device
+    (count.py:member_bitmap; member_np is its host twin): bitmap[b, k, l]
+    is True iff hit row hits[b, k] is in the sorted postings slice
+    postings[offs[b, l] : offs[b, l] + lens[b, l]].
+
+    postings int32[P] (uint32 rows); offs, lens int64[B, L]; hits
+    int64[B, K] holding uint32 values; iters, a static bound
+    ceil(log2(max_len + 1)) + 1 from the longest postings list.  Returns
+    bool[B, K, L]: `iters` gathers of B * K * L elements, whatever the
+    expansion cap."""
+    B, K = hits.shape
+    L = offs.shape[1]
+    P = postings.shape[0]
+    end = (offs + lens)[:, None, :].expand(B, K, L)
+    lo = offs[:, None, :].expand(B, K, L)
+    hi = end
+    h = hits[:, :, None]
+    for _ in range(iters):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        v = as_u32(postings[mid.clamp(0, P - 1)])
+        go_right = active & (v < h)
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    v = as_u32(postings[lo.clamp(0, P - 1)])
+    return (lo < end) & (v == h)
 
 
 def member_bitmap_from_rows(rows: torch.Tensor, seg: torch.Tensor,

@@ -17,16 +17,25 @@ continues across processes, comm.dp_all_gather):
   every shard; each query's max and sum over shards of its shard-local
   cold expansion volume, and its hot run weight.
 - sharded_group (make_sharded_group): one phase-2 group.  Each shard
-  expands its cold runs (ops/count.expand_hybrid with no tile tier, the
-  JAX gather_postings), the rows and weights go through all_to_all so
-  that shard i finalizes the i-th 1/n of the dp row's queries with every
-  shard's postings, then weighted sort + RLE + top-k.  The hot step adds
-  each shard's dense partial W @ M, summed exactly by psum_scatter (every
-  posting lives on one shard), and the per-lane candidate-union merge
+  expands its cold runs (ops/count.expand_hybrid with no tile tier: the
+  entries of ops/count.gather_postings, which the JAX step calls), the
+  rows and weights go through all_to_all so that shard i finalizes the
+  i-th 1/n of the dp row's queries with every shard's postings, then
+  weighted sort + RLE + top-k.  The hot step adds each shard's dense
+  partial W @ M, summed exactly by psum_scatter (every posting lives on
+  one shard), and the per-lane candidate-union merge
   (ops/hotset.merge_hot_cold), as the JAX engine does.  Positions: the
   merged top hits are gathered back to every shard, each shard builds
   its bitmaps from its own run structure, and the packed bitmaps
   OR-merge through one more all_to_all.
+- sharded_search (make_sharded_search): the whole-batch step, with no
+  hot split and no group schedule.  Each shard expands all its runs at
+  `cap` (ops/count.gather_postings), the rows and weights go through
+  all_to_all, then weighted sort + RLE + top-k; it also returns each
+  query's largest shard-local expansion volume, and with positions the
+  bitmaps of sharded_group's cold step.  replicate_query_batch pads a
+  query batch for it; grid_index and grid_batch place the JAX step's
+  host arrays on a Mesh.
 
 The JAX module's pack_w_bits only chooses its sort-key layout; the port
 sorts int64 keys everywhere (ops/count.sort_rle), which rank the same.
@@ -45,8 +54,8 @@ from ..index.artifact import DBArtifact
 from ..index.hashtable import HASH_MULT, build_table, occupied_entries
 from ..ops import hotset
 from ..ops.count import (count_topk, dedup_runs, expand_hybrid,
-                         expand_run_bitmaps, member_bitmap_from_rows,
-                         pack_bits, sort_rle)
+                         expand_run_bitmaps, gather_postings,
+                         member_bitmap_from_rows, pack_bits, sort_rle)
 from ..ops.probe import probe_slices
 from . import comm
 
@@ -216,8 +225,6 @@ def shard_index_arrays(
     )
 
 
-
-
 # ---------------------------------------------------------------------------
 # Device-side sharded steps
 # ---------------------------------------------------------------------------
@@ -227,11 +234,17 @@ def _probe_dedup(table, codes, n_kmers, hash_log2: int, miss_start: int,
                  width: int):
     """The front half of every sharded step (mesh.py:_probe_dedup):
     decode -> encode -> shard-local cuckoo probe -> query-time run dedup.
-    codes: int32[B, ceil(width/7)] wire words (width > 0) or residue
-    codes; n_kmers: int64[B].  Returns (offs, lens, lens_u, wstart,
-    run_start) int64[B, L] and L."""
-    codes = (codec.unpack_codes7(codes, width) if width
-             else codes.to(torch.int64))
+    codes: wire words (width > 0) -- int32[B, ceil(width/7)] holding the
+    uint32 words of pack_codes7, or in any other integer dtype the uint16
+    words of pack_codes3, as the JAX module tells uint32 from uint16 --
+    or residue codes (width 0); n_kmers: int64[B].  Returns (offs, lens,
+    lens_u, wstart, run_start) int64[B, L] and L."""
+    if not width:
+        codes = codes.to(torch.int64)
+    elif codes.dtype == torch.int32:
+        codes = codec.unpack_codes7(codes, width)
+    else:
+        codes = codec.unpack_codes3(codes, width)
     L = codes.shape[1] - (KMER_SIZE - 1)
     kmers = codec.encode_kmers(codes, L)
     starts, lens = probe_slices(table, kmers, hash_log2, miss_start)
@@ -292,6 +305,24 @@ def _or_merge_bitmaps(packed, counts):
     return out
 
 
+def _position_round(rows, seg, run_starts, hits, counts, L: int,
+                    extra=None):
+    """The positions round of the sharded steps (mesh.py:position_round):
+    the merged top hits are gathered back to every shard, each shard
+    builds its bitmaps from its own expansion and run structure (plus
+    extra(s, hits) where given), and the packed bitmaps OR-merge."""
+    hits_all = comm.all_gather(hits, 0)
+    packed = []
+    for s in range(len(rows)):
+        found = expand_run_bitmaps(
+            member_bitmap_from_rows(rows[s], seg[s], hits_all[s], L),
+            run_starts[s])
+        if extra is not None:
+            found = found | extra(s, hits_all[s])
+        packed.append(pack_bits(found))
+    return _or_merge_bitmaps(packed, counts)
+
+
 def _group_row(tables, postings, codes, n_kmers, hot, hash_log2: int,
                cap: int, k: int, width: int, positions: bool):
     """make_sharded_group's local_step over one dp row's shards.  Returns
@@ -334,18 +365,16 @@ def _group_row(tables, postings, codes, n_kmers, hot, hash_log2: int,
     hits = [h for _, h in res]
     if not positions:
         return counts, hits
-    hits_all = comm.all_gather(hits, 0)
-    packed = []
-    for s, (offs, run_start, whot) in enumerate(fronts):
-        found = expand_run_bitmaps(
-            member_bitmap_from_rows(rows[s], seg[s], hits_all[s], L),
-            run_start)
-        if hot is not None:
-            found = found | hotset.hot_position_bitmaps(
-                offs, hotset.hot_lane_mask(whot, run_start), hot[3][s],
-                hot[2][s], hits_all[s])
-        packed.append(pack_bits(found))
-    return counts, hits, _or_merge_bitmaps(packed, counts)
+
+    def hot_bits(s, hits_s):
+        offs, run_start, whot = fronts[s]
+        return hotset.hot_position_bitmaps(
+            offs, hotset.hot_lane_mask(whot, run_start), hot[3][s],
+            hot[2][s], hits_s)
+
+    return counts, hits, _position_round(
+        rows, seg, [f[1] for f in fronts], hits, counts, L,
+        None if hot is None else hot_bits)
 
 
 def sharded_group(tables, postings, codes, n_kmers, *, hash_log2: int,
@@ -379,3 +408,114 @@ def sharded_group(tables, postings, codes, n_kmers, *, hash_log2: int,
     if replicate_out:
         outs = tuple(comm.dp_all_gather(o) for o in outs)
     return outs
+
+
+def _search_row(tables, postings, codes, n_kmers, hash_log2: int, cap: int,
+                k: int, width: int, positions: bool):
+    """make_sharded_search's local_step over one dp row's shards.  Returns
+    per-shard lists (counts, hit_rows, totals[, bits]) of each shard's B/n
+    finalized queries."""
+    rows, seg, w, totals, run_starts = [], [], [], [], []
+    for s in range(len(tables)):
+        offs, _, lens_u, wstart, run_start, L = _probe_dedup(
+            tables[s], codes[s], n_kmers[s], hash_log2,
+            postings[s].shape[0], width)
+        cum = torch.cumsum(lens_u, dim=1)
+        r, sg, _, wt = gather_postings(postings[s], offs, cum, cum[:, -1],
+                                       cap, wstart=wstart)
+        rows.append(r)
+        seg.append(sg)
+        w.append(wt)
+        totals.append(cum[:, -1])
+        run_starts.append(run_start)
+    res = [count_topk(r, k, weights=wt)
+           for r, wt in zip(comm.all_to_all(rows, 0, 1),
+                            comm.all_to_all(w, 0, 1))]
+    counts = [c for c, _ in res]
+    hits = [h for _, h in res]
+    # every shard holds the max; each keeps its own B/n queries' part
+    tmax = [t[:, 0] for t in comm.all_to_all(
+        [t[:, None] for t in comm.pmax(totals)], 0, 1)]
+    if not positions:
+        return counts, hits, tmax
+    return counts, hits, tmax, _position_round(rows, seg, run_starts, hits,
+                                               counts, L)
+
+
+def sharded_search(tables, postings, codes, n_kmers, *, hash_log2: int,
+                   cap: int, k: int, width: int = 0,
+                   positions: bool = False):
+    """make_sharded_search: the whole-batch sharded search step (the
+    serving engine runs sharded_totals and sharded_group instead).  Every
+    shard probes and run-deduplicates the batch and expands all its runs
+    at capacity `cap` (entries past it are dropped, as in the JAX step);
+    the merged rows are counted and ranked on the shard that finalizes
+    them.
+
+    tables, postings, codes, n_kmers: [dp][shard], as sharded_group takes
+    them (grid_index and grid_batch place the JAX step's host arrays so).
+    Returns (counts int32[G', k], hit_rows int64[G', k], totals
+    int64[G'][, bitmaps uint8[G', k, L // 8] with positions]) in the
+    P(("dp", "shard")) row order on the device of tables[0][0], G' being
+    this process's rows; totals is each query's largest shard-local
+    deduplicated postings volume, so a cap at or above totals.max()
+    loses nothing."""
+    per_row = [_search_row(t, p, c, nk, hash_log2, cap, k, width, positions)
+               for t, p, c, nk in zip(tables, postings, codes, n_kmers)]
+    dev = tables[0][0].device
+    return tuple(_rows_on([b for row in per_row for b in row[j]], dev)
+                 for j in range(len(per_row[0])))
+
+
+def _signed(a: np.ndarray) -> torch.Tensor:
+    """A host array as a tensor, uint32 and uint16 words viewed as int32
+    and int16 (_probe_dedup tells the wire formats apart by them)."""
+    a = np.ascontiguousarray(a)
+    view = {np.dtype(np.uint32): np.int32, np.dtype(np.uint16): np.int16}
+    return torch.from_numpy(a.view(view.get(a.dtype, a.dtype)))
+
+
+def grid_index(sharded: ShardedIndexArrays, mesh):
+    """sharded_search's (tables, postings) on a parallel.dist.Mesh, as
+    [dp][shard] lists: each shard's table and postings (uint32 held as
+    int32) on every device of its column, one copy a device."""
+    cols = []
+    for s in range(sharded.n_shards):
+        host = (_signed(sharded.tables[s]), _signed(sharded.postings[s]))
+        cols.append({d: tuple(h.to(d) for h in host)
+                     for d in dict.fromkeys(r[s] for r in mesh.devices)})
+    return tuple([[cols[s][d][j] for s, d in enumerate(row)]
+                  for row in mesh.devices] for j in range(2))
+
+
+def grid_batch(codes, n_kmers, mesh):
+    """sharded_search's (codes, n_kmers) on a parallel.dist.Mesh, as
+    [dp][shard] lists, from the global batch the JAX step takes (residue
+    codes or wire words, and k-mer counts): the block of each of this
+    process's dp rows on every device of the row."""
+    per = codes.shape[0] // mesh.shape["dp"]
+    base = mesh.rank * len(mesh.devices)
+    rows_c, rows_n = [], []
+    for i, row in enumerate(mesh.devices):
+        lo = (base + i) * per
+        c = _signed(codes[lo:lo + per])
+        n = torch.from_numpy(np.asarray(n_kmers[lo:lo + per], np.int64))
+        on = {d: (c.to(d), n.to(d)) for d in dict.fromkeys(row)}
+        rows_c.append([on[d][0] for d in row])
+        rows_n.append([on[d][1] for d in row])
+    return rows_c, rows_n
+
+
+def replicate_query_batch(seqs, sizes, batch_mult: int):
+    """Pad a query batch so B is divisible by dp*shard, returning codes and
+    n_kmers arrays (padding queries have 0 k-mers)."""
+    B0 = len(seqs)
+    B = max(batch_mult, ((B0 + batch_mult - 1) // batch_mult) * batch_mult)
+    L = _next_pow2(max(max(sizes), 8) if sizes else 8)
+    codes = np.full((B, L + KMER_SIZE - 1), -1, dtype=np.int32)
+    n_kmers = np.zeros(B, dtype=np.int32)
+    for i, s in enumerate(seqs):
+        c = codec.seq_to_codes(s)[: L + KMER_SIZE - 1]
+        codes[i, : c.shape[0]] = c
+        n_kmers[i] = sizes[i]
+    return codes, n_kmers

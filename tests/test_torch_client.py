@@ -259,7 +259,7 @@ def test_main_dispatches_as_jax(argv, capsys):
         code = main(argv)
         got[name] = (code, capsys.readouterr().out.replace(
             "kaamer_tpu_torch.cli", "kaamer_tpu.cli"))
-    if argv == ["db"]:  # the help texts differ by -device and downloads
+    if argv == ["db"]:  # the help texts differ by -device
         assert got["torch"][0] == got["jax"][0] == 0
         assert got["torch"][1].startswith("usage: kaamer-db")
     else:
