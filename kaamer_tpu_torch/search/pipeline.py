@@ -15,6 +15,11 @@ The host half is the JAX package's, copied unchanged:
 
 -aln aligns the kept hits in flushes of ALIGN_FLUSH_PAIRS pairs on the
 engine's device (ops/swalign.py), translated hits included.
+
+Results travel one device batch at a time: every route turns a batch's
+counts into its results, and run_search into its response bytes, under
+a `kaamer.pipeline.results` span (trace.span), and yields them after the
+span closes.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..io_formats.readers import (QueryLocation, QueryRecord,
                                   read_fasta_queries, read_fastq_queries)
 from . import results as fmt
 from ..ops import swalign
+from ..trace import span
 from .engine import QueryCounts, SearchEngine, _next_pow2
 from .options import (DNA_QUERY, NUCLEOTIDE, PROTEIN, PROTEIN_QUERY, READS,
                       SearchOptions)
@@ -63,27 +69,42 @@ def run_search(engine: SearchEngine, opts: SearchOptions,
             engine, opts, fastq=opts.SequenceType == READS, cancel=cancel)
         return
 
-    results = iter_query_results(engine, opts, cancel=cancel)
+    batches = iter_query_results(engine, opts, cancel=cancel)
     if opts.Align:
-        results = _aligned_results(engine, results, opts)
-
+        batches = _aligned_results(engine, batches, opts)
     first = True
-    for qr in results:
-        if opts.OutFormat == "json":
-            data = fmt.json_result(qr, opts.Align).encode()
-            yield data if first else b"," + data
-            first = False
-        else:
-            rows = fmt.tsv_rows(qr, opts, db_stats)
-            if rows:
-                yield "".join(rows).encode()
+    for qrs in batches:
+        with span("kaamer.pipeline.results"):
+            data = _encode(qrs, opts, db_stats, first)
+        first = first and not qrs
+        if data:
+            yield data
 
     if opts.OutFormat == "json":
         yield fmt.JSON_EPILOGUE.encode()
 
 
+def _encode(qrs: List[QueryResult], opts: SearchOptions, db_stats,
+            first: bool) -> bytes:
+    """The response bytes of qrs: TSV rows, or JSON objects each after a
+    comma but the array's first (first: no result written yet)."""
+    parts = []
+    for qr in qrs:
+        if opts.OutFormat == "json":
+            data = fmt.json_result(qr, opts.Align).encode()
+            parts.append(data if first else b"," + data)
+            first = False
+        else:
+            rows = fmt.tsv_rows(qr, opts, db_stats)
+            if rows:
+                parts.append("".join(rows).encode())
+    return b"".join(parts)
+
+
 def iter_query_results(engine: SearchEngine, opts: SearchOptions,
-                       cancel=None) -> Iterator[QueryResult]:
+                       cancel=None) -> Iterator[List[QueryResult]]:
+    """The results with hits of a search, one list per device batch, in
+    query order."""
     if opts.SequenceType == PROTEIN:
         yield from protein_search(engine, opts, cancel=cancel)
     elif opts.SequenceType == NUCLEOTIDE:
@@ -164,7 +185,7 @@ def _pipelined(engine: SearchEngine, batches, k: int, depth: int = 4,
 
 
 def protein_search(engine: SearchEngine, opts: SearchOptions,
-                   cancel=None) -> Iterator[QueryResult]:
+                   cancel=None) -> Iterator[List[QueryResult]]:
     def queries():
         for q in read_fasta_queries(opts.File, is_protein=True):
             q.Type = PROTEIN_QUERY
@@ -178,13 +199,16 @@ def protein_search(engine: SearchEngine, opts: SearchOptions,
     for batch, counts in _pipelined(engine, _batched(queries()), k,
                                     positions=opts.ExtractPositions,
                                     cancel=cancel):
-        for q, qc in zip(batch, counts):
-            if qc is None:  # engines only return None under min_top gating
-                continue
-            qr = _build_result(engine, q, qc, opts,
-                               need_positions=opts.ExtractPositions)
-            if qr is not None and qr.Hits:
-                yield qr
+        with span("kaamer.pipeline.results"):
+            qrs = []
+            for q, qc in zip(batch, counts):
+                if qc is None:  # engines only return None under min_top
+                    continue
+                qr = _build_result(engine, q, qc, opts,
+                                   need_positions=opts.ExtractPositions)
+                if qr is not None and qr.Hits:
+                    qrs.append(qr)
+        yield qrs
 
 
 def _build_result(
@@ -276,7 +300,7 @@ def _nt_records(opts: SearchOptions, fastq: bool):
 
 def nucleotide_search(
     engine: SearchEngine, opts: SearchOptions, fastq: bool, cancel=None
-) -> Iterator[QueryResult]:
+) -> Iterator[List[QueryResult]]:
     records = _nt_records(opts, fastq)
 
     def orf_items():
@@ -300,82 +324,87 @@ def nucleotide_search(
                                     seq_of=itemgetter(0),
                                     size_of=itemgetter(1),
                                     min_top=opts.MinKMatch):
-        for item, qc in zip(batch, counts):
-            # top-hit gate (search_nucleotide.go:116): min_top gates rows
-            # vectorized in the engine (returned as None, bitmaps never
-            # unpacked); host-fallback rows bypass the engine gate and are
-            # re-checked here
-            if qc is None or qc.counts.size == 0 \
-                    or int(qc.counts[0]) < opts.MinKMatch:
-                continue
+        with span("kaamer.pipeline.results"):
+            qrs = []
+            for item, qc in zip(batch, counts):
+                # top-hit gate (search_nucleotide.go:116): min_top gates rows
+                # vectorized in the engine (returned as None, bitmaps never
+                # unpacked); host-fallback rows bypass the engine gate and are
+                # re-checked here
+                if qc is None or qc.counts.size == 0 \
+                        or int(qc.counts[0]) < opts.MinKMatch:
+                    continue
 
-            seq, n, rec, sp, ep, plus, alts = item
-            # the ORF's alternative-starts list is handed over without a
-            # copy: set_best_start_codon rebinds (not mutates) the attribute
-            q = QueryRecord(
-                Sequence=seq,
-                Name=rec.Name,
-                SizeInKmer=n,
-                Type=DNA_QUERY,
-                Location=QueryLocation(
-                    StartPosition=sp, EndPosition=ep, PlusStrand=plus,
-                    StartsAlternative=alts,
-                ),
-                Contig=rec.Contig if not fastq else "",
-            )
-            # hits below MinKMatch are dropped by filter_results regardless
-            # (search.go:189-220, monotone in Kmatch over the count-desc
-            # list), so trim BEFORE building Hit objects and bitmaps --
-            # most of the per-ORF host cost scales with the hit count
-            m = int((qc.counts >= opts.MinKMatch).sum())
-            keys = ext_ids[qc.hit_rows[:m]].tolist()
-            kms = qc.counts[:m].tolist()
-            hits = [Hit(Key=key, Kmatch=km) for key, km in zip(keys, kms)]
-            # Positions are always extracted for translated queries
-            # (search.go:416); compute them for every reported hit candidate.
-            # Bitmaps stay numpy bool arrays end to end (argmax start-codon
-            # scan, vectorized run formatting, tolist only at JSON time).
-            if qc._bitmaps is not None:
-                # device bitmaps are prefix-aligned with hit_rows: row j of
-                # the [k, L] bool array IS hit_rows[j]'s bitmap
-                bmq = qc._bitmaps
-                if lean_positions:
-                    t = 1  # ties at the top count (counts are desc)
-                    while t < len(kms) and kms[t] == kms[0]:
-                        t += 1
-                    position_hits = {key: bmq[j, :n]
-                                     for j, key in enumerate(keys[:t])}
-                else:
-                    position_hits = {key: bmq[j, :n]
-                                     for j, key in enumerate(keys)}
-            else:  # host-fallback queries carry no device bitmaps
-                rows = [int(r) for r in qc.hit_rows[:m]]
-                bitmaps_rows = engine.position_bitmaps_np(qc, rows)
-                position_hits = {
-                    int(ext_ids[r]): bm for r, bm in bitmaps_rows.items()
-                }
-
-            qr = QueryResult(Query=q, Hits=hits,
-                             PositionHits=position_hits, HitEntries={})
-            if len(alts) > 1:  # with <=1 alternative it provably no-ops
-                set_best_start_codon(
-                    qr.Query,
-                    list(zip(keys, kms)),
-                    qr.PositionHits,
+                seq, n, rec, sp, ep, plus, alts = item
+                # the ORF's alternative-starts list is handed over without
+                # a copy: set_best_start_codon rebinds (not mutates) the
+                # attribute
+                q = QueryRecord(
+                    Sequence=seq,
+                    Name=rec.Name,
+                    SizeInKmer=n,
+                    Type=DNA_QUERY,
+                    Location=QueryLocation(
+                        StartPosition=sp, EndPosition=ep, PlusStrand=plus,
+                        StartsAlternative=alts,
+                    ),
+                    Contig=rec.Contig if not fastq else "",
                 )
-            fmt.filter_results(qr, opts)
-            if qr.Hits:
-                if lean_positions:
-                    qr.PositionHits = {}
-                else:
-                    # drop bitmaps of proteins outside the kept hit list
-                    # (the reference deletes them in FilterResults)
-                    kept = {h.Key for h in qr.Hits}
-                    qr.PositionHits = {
-                        k: v for k, v in qr.PositionHits.items() if k in kept
+                # hits below MinKMatch are dropped by filter_results regardless
+                # (search.go:189-220, monotone in Kmatch over the count-desc
+                # list), so trim BEFORE building Hit objects and bitmaps --
+                # most of the per-ORF host cost scales with the hit count
+                m = int((qc.counts >= opts.MinKMatch).sum())
+                keys = ext_ids[qc.hit_rows[:m]].tolist()
+                kms = qc.counts[:m].tolist()
+                hits = [Hit(Key=key, Kmatch=km) for key, km in zip(keys, kms)]
+                # Positions are always extracted for translated queries
+                # (search.go:416); compute them for every reported hit
+                # candidate.  Bitmaps stay numpy bool arrays end to end
+                # (argmax start-codon scan, vectorized run formatting,
+                # tolist only at JSON time).
+                if qc._bitmaps is not None:
+                    # device bitmaps are prefix-aligned with hit_rows: row j of
+                    # the [k, L] bool array IS hit_rows[j]'s bitmap
+                    bmq = qc._bitmaps
+                    if lean_positions:
+                        t = 1  # ties at the top count (counts are desc)
+                        while t < len(kms) and kms[t] == kms[0]:
+                            t += 1
+                        position_hits = {key: bmq[j, :n]
+                                         for j, key in enumerate(keys[:t])}
+                    else:
+                        position_hits = {key: bmq[j, :n]
+                                         for j, key in enumerate(keys)}
+                else:  # host-fallback queries carry no device bitmaps
+                    rows = [int(r) for r in qc.hit_rows[:m]]
+                    bitmaps_rows = engine.position_bitmaps_np(qc, rows)
+                    position_hits = {
+                        int(ext_ids[r]): bm for r, bm in bitmaps_rows.items()
                     }
-                _fetch_entries(engine, qr)
-                yield qr
+
+                qr = QueryResult(Query=q, Hits=hits,
+                                 PositionHits=position_hits, HitEntries={})
+                if len(alts) > 1:  # with <=1 alternative it provably no-ops
+                    set_best_start_codon(
+                        qr.Query,
+                        list(zip(keys, kms)),
+                        qr.PositionHits,
+                    )
+                fmt.filter_results(qr, opts)
+                if qr.Hits:
+                    if lean_positions:
+                        qr.PositionHits = {}
+                    else:
+                        # drop bitmaps of proteins outside the kept hit list
+                        # (the reference deletes them in FilterResults)
+                        kept = {h.Key for h in qr.Hits}
+                        qr.PositionHits = {
+                            k: v for k, v in qr.PositionHits.items()
+                            if k in kept}
+                    _fetch_entries(engine, qr)
+                    qrs.append(qr)
+        yield qrs
 
 
 # Kill switch for the lean translated-read TSV path (tests force the
@@ -418,95 +447,100 @@ def _nucleotide_search_lean_tsv(engine: SearchEngine, opts: SearchOptions,
                                     seq_of=itemgetter(0),
                                     size_of=itemgetter(1),
                                     min_top=min_km):
-        parts: List[str] = []
-        for item, qc in zip(batch, counts):
-            if qc is None or qc.counts.size == 0 \
-                    or int(qc.counts[0]) < min_km:
-                continue
-            seq, size, rec, sp, ep, plus, alts = item
-            kml = qc.counts.tolist()
-            # start-codon refinement (set_best_start_codon semantics on raw
-            # arrays): find the first matched k-mer among top-tie hits'
-            # bitmaps, honoring the reference's shared exit flag -- later
-            # tie hits are only consulted at position 0
-            if len(alts) > 1:
-                top = kml[0]
-                first_pos = 999999999
-                exit_flag = False
-                bmq = qc._bitmaps
-                for j, km in enumerate(kml):
-                    if km < top:
+        with span("kaamer.pipeline.results"):
+            parts: List[str] = []
+            for item, qc in zip(batch, counts):
+                if qc is None or qc.counts.size == 0 \
+                        or int(qc.counts[0]) < min_km:
+                    continue
+                seq, size, rec, sp, ep, plus, alts = item
+                kml = qc.counts.tolist()
+                # start-codon refinement (set_best_start_codon semantics on raw
+                # arrays): find the first matched k-mer among top-tie hits'
+                # bitmaps, honoring the reference's shared exit flag -- later
+                # tie hits are only consulted at position 0
+                if len(alts) > 1:
+                    top = kml[0]
+                    first_pos = 999999999
+                    exit_flag = False
+                    bmq = qc._bitmaps
+                    for j, km in enumerate(kml):
+                        if km < top:
+                            break
+                        if bmq is not None:
+                            bm = bmq[j, :size]
+                        else:  # host-fallback rows carry no device bitmaps
+                            r = int(qc.hit_rows[j])
+                            bm = engine.position_bitmaps_np(qc, [r]).get(
+                                r, np.zeros(0, bool))
+                        if bm.size == 0:
+                            continue
+                        if exit_flag:
+                            if bm[0]:
+                                first_pos = 0
+                        else:
+                            i = int(bm.argmax())
+                            if bm[i]:
+                                first_pos = min(first_pos, i)
+                                exit_flag = True
+                    best_start = alts[0]
+                    for s in alts:
+                        if s <= first_pos:
+                            best_start = s
+                        else:
+                            break
+                    if best_start != alts[0]:
+                        sp = (sp + 3 * best_start if plus
+                              else sp - 3 * best_start)
+                        seq2 = seq[best_start:]
+                        size = len(seq2) - KMER_SIZE + 1
+                        if seq2.endswith("*"):
+                            size -= 1
+                # FilterResults prefix + MaxResults cap
+                good = 0
+                for km in kml:
+                    if (km / size if size else 0.0) < min_ratio or km < min_km:
                         break
-                    if bmq is not None:
-                        bm = bmq[j, :size]
-                    else:  # host-fallback rows carry no device bitmaps
-                        r = int(qc.hit_rows[j])
-                        bm = engine.position_bitmaps_np(qc, [r]).get(
-                            r, np.zeros(0, bool))
-                    if bm.size == 0:
-                        continue
-                    if exit_flag:
-                        if bm[0]:
-                            first_pos = 0
-                    else:
-                        i = int(bm.argmax())
-                        if bm[i]:
-                            first_pos = min(first_pos, i)
-                            exit_flag = True
-                best_start = alts[0]
-                for s in alts:
-                    if s <= first_pos:
-                        best_start = s
-                    else:
-                        break
-                if best_start != alts[0]:
-                    sp = sp + 3 * best_start if plus else sp - 3 * best_start
-                    seq2 = seq[best_start:]
-                    size = len(seq2) - KMER_SIZE + 1
-                    if seq2.endswith("*"):
-                        size -= 1
-            # FilterResults prefix + MaxResults cap
-            good = 0
-            for km in kml:
-                if (km / size if size else 0.0) < min_ratio or km < min_km:
-                    break
-                good += 1
-            good = min(good, max_res)
-            if not good:
-                continue
-            qname = rec.Name.split(" ", 1)[0]
-            rows_np = qc.hit_rows
-            tail = f"\tN/A\t{sp}\t{ep}\t1\tN/A\n"
-            for j in range(good):
-                km = kml[j]
-                parts.append(f"{qname}\t{eid(int(rows_np[j]))}\t"
-                             f"{pct(km, size)}\t{size}\t{km}{tail}")
-        if parts:
-            yield "".join(parts).encode()
+                    good += 1
+                good = min(good, max_res)
+                if not good:
+                    continue
+                qname = rec.Name.split(" ", 1)[0]
+                rows_np = qc.hit_rows
+                tail = f"\tN/A\t{sp}\t{ep}\t1\tN/A\n"
+                for j in range(good):
+                    km = kml[j]
+                    parts.append(f"{qname}\t{eid(int(rows_np[j]))}\t"
+                                 f"{pct(km, size)}\t{size}\t{km}{tail}")
+            data = "".join(parts).encode()
+        if data:
+            yield data
 
 
-def _aligned_results(engine: SearchEngine, results, opts: SearchOptions):
+def _aligned_results(engine: SearchEngine, batches, opts: SearchOptions):
     """Alignment step batched across the result stream
     (pipeline.py:534-559): buffer results until ALIGN_FLUSH_PAIRS (query,
     subject) pairs accumulate, enqueue that batch on the engine's device,
     keep collecting results while it runs, and resolve a flush once the
-    next one is enqueued.  Each result's hits re-sort by bit score desc;
+    next one is enqueued.  Takes and yields lists of results (a yielded
+    list is one flush); each result's hits re-sort by bit score desc;
     results keep their order."""
     pending = deque()
     buf: List[QueryResult] = []
     n_pairs = 0
-    for qr in results:
-        buf.append(qr)
-        n_pairs += sum(1 for h in qr.Hits if h.Key in qr.HitEntries)
-        if n_pairs >= ALIGN_FLUSH_PAIRS:
-            pending.append(_align_dispatch(engine, buf, opts))
-            buf, n_pairs = [], 0
-            if len(pending) >= 2:
-                yield from _align_resolve(pending.popleft())
+    for qrs in batches:
+        for qr in qrs:
+            buf.append(qr)
+            n_pairs += sum(1 for h in qr.Hits if h.Key in qr.HitEntries)
+            if n_pairs >= ALIGN_FLUSH_PAIRS:
+                pending.append(_align_dispatch(engine, buf, opts))
+                buf, n_pairs = [], 0
+                if len(pending) >= 2:
+                    yield _align_resolve(pending.popleft())
     if buf:
         pending.append(_align_dispatch(engine, buf, opts))
     while pending:
-        yield from _align_resolve(pending.popleft())
+        yield _align_resolve(pending.popleft())
 
 
 def _align_dispatch(engine: SearchEngine, buf: List[QueryResult],
@@ -530,7 +564,7 @@ def _align_dispatch(engine: SearchEngine, buf: List[QueryResult],
     return buf, hit_refs, handle
 
 
-def _align_resolve(flush):
+def _align_resolve(flush) -> List[QueryResult]:
     buf, hit_refs, handle = flush
     if handle is not None:
         for h, res in zip(hit_refs, swalign.align_batch_resolve(handle)):
@@ -540,4 +574,4 @@ def _align_resolve(flush):
         # sort is stable, so zero-score hits keep their kmatch order
         qr.Hits.sort(key=lambda h: -h.Alignment.BitScore if h.Alignment
                      else 0.0)
-        yield qr
+    return buf

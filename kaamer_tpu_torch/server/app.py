@@ -13,6 +13,9 @@ Form parsing, option parsing, the default options, the disconnect poller
 and the static file server are the JAX server's
 (kaamer_tpu/server/app.py:42-164,197-215), copied unchanged; the rest of
 the handler is this module's own.
+
+A `kaamer.request` span (trace.span) holds a POST's whole handling, on
+its handler thread.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from ..index.artifact import load_db
 from ..search.engine import SearchEngine
 from ..search.options import NUCLEOTIDE, PROTEIN, READS, SearchOptions
 from ..search.pipeline import run_search
+from ..trace import span
 
 # search route -> SequenceType (kaamer_tpu/server/app.py:219-223)
 ROUTES = {
@@ -239,6 +243,10 @@ def make_handler(engine: SearchEngine, tmp_folder: str, web_dirs: dict):
                         CONTENT_TYPES.get(ext, "application/octet-stream"))
 
         def do_POST(self):
+            with span("kaamer.request"):
+                self._search()
+
+        def _search(self):
             path = urllib.parse.urlparse(self.path).path
             seq_type = ROUTES.get(path)
             if seq_type is None:

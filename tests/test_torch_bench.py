@@ -153,8 +153,8 @@ def _recording_run_search(files, n_chunks):
         with open(opts.File) as f:
             files.append((os.path.basename(opts.File), f.read(),
                           opts.SequenceType, opts.Align, opts.MaxResults))
-        for _ in range(n_chunks):
-            yield b"hit\n"
+        for i in range(n_chunks):
+            yield b"q%d\thit\n" % i
     return run_search
 
 
