@@ -30,9 +30,16 @@ bench.py: the database comes from the port's own generator
      (8192 FASTQ reads, TSV: the lean translated path) and R5 (64
      contigs of 4 genes each, JSON + positions + align=true), each twice
      (the second is the warm wall), counting the first pass's kernel
-     launches from 0; R2 and R5 must launch sw_align; then R1, R2, R3 and
-     R5 from four threads at once, twice, each body's sha256 equal to its
-     serial body's;
+     launches from 0; R2 and R5 must launch sw_align, every request
+     rle_sorted, once a phase-2 chunk (engine.stats["rle"]); then R1, R2,
+     R3 and R5 from four threads at once, twice, each body's sha256 equal
+     to its serial body's;
+  5b. rle phase: the rle_sorted kernel (csrc/rle.cu) against its plain
+     version, exactly and in both of its modes, on the sorted keys of the
+     largest chunk of R1 (hot, 1M) and of R4 (reads) as the served engine
+     makes them, and at G = 1, n = 2^21 + 64 and G = 2048, n = 64; each
+     timed (call and device ms, the plain version's ms, the bound: bytes
+     over 3.35 TB/s);
   6. sync proof: dispatch_batch and align_batch_dispatch under
      torch.cuda.set_sync_debug_mode("error"), and schedule_batch under
      "warn", which must wait for the card exactly once (the totals);
@@ -796,11 +803,13 @@ def serve_phase(engine, reqs, card: str):
     warm wall), each with the launch counts set to 0 just before it and
     read just after.  Returns the kernels' launch counts summed over the
     first pass of R1-R5, and the response bodies."""
+    from kaamer_tpu_torch.ops import count as ct
     from kaamer_tpu_torch.ops import swalign as sw
     from kaamer_tpu_torch.ops import swalign_cuda as swc
 
     bodies = {}
     launches = {name: 0 for name, _ in KERNELS}
+    launches.update(dict.fromkeys(ct.launches, 0))
     per_request = {}
     with Served(engine) as url:
         host_dp = sw.HOST_DP_PAIRS
@@ -810,13 +819,14 @@ def serve_phase(engine, reqs, card: str):
             walls = []
             for rep in range(2):
                 swc.reset_launches()
+                ct.reset_launches()
                 status, body, wall = post(url + route,
                                           {"type": "string", **fields})
                 check(status == 200, f"{name}: HTTP {status}")
                 walls.append(wall)
                 if rep == 0:
-                    per_request[name] = dict(swc.launches)
-                    for k, v in swc.launches.items():
+                    per_request[name] = {**swc.launches, **ct.launches}
+                    for k, v in per_request[name].items():
                         launches[k] += v
                     bodies[name] = body
                 check(body == bodies[name], f"{name}: the warm answer's bytes "
@@ -835,7 +845,87 @@ def serve_phase(engine, reqs, card: str):
     for name in ("R2", "R5"):
         check(per_request[name]["sw_align"] > 0,
               f"{name} never launched sw_align")
+    for name in per_request:
+        check(per_request[name]["rle_sorted"] > 0,
+              f"{name} never launched rle_sorted")
+    launches["rle_sorted_per_R1"] = per_request["R1"]["rle_sorted"]
     return launches, bodies
+
+
+RLE_READ_BYTES = 8           # an entry's key
+RLE_WRITE_BYTES = {False: 8 + 4 + 1 + 1, True: 8 + 8}  # by rank-key mode
+
+
+def rle_phase(engine, reqs, card: str) -> dict:
+    """rle_sorted against rle_sorted_plain on the card, exactly, in both
+    modes, on the sorted keys of the largest chunk of R1 and of R4 as the
+    served engine makes them (captured from the requests), and on random
+    keys at G = 1, n = 2^21 + 64 and G = 2048, n = 64; each timed in the
+    mode its chunk used (R1: the rank-key mode of merge_hot_cold_tam).
+    Returns the result dict of R1's chunk, with every case under
+    "configs"."""
+    import torch
+
+    from kaamer_tpu_torch.ops import count as ct
+    from kaamer_tpu_torch.ops import hotset
+
+    real, largest = ct.rle_sorted, {}
+
+    def capture(label):
+        def call(ks, rank_keys=False, skip_inj=False):
+            have = largest.get(label)
+            if have is None or ks.numel() > have[0].numel():
+                largest[label] = (ks.clone(), rank_keys, skip_inj)
+            return real(ks, rank_keys, skip_inj)
+        return call
+
+    with Served(engine) as url:
+        for name, route, fields, _ in reqs:
+            if name in ("R1", "R4"):
+                ct.rle_sorted = hotset.rle_sorted = capture(name)
+                try:
+                    post(url + route, {"type": "string", **fields})
+                finally:
+                    ct.rle_sorted = hotset.rle_sorted = real
+    gen = torch.Generator(device=engine.device).manual_seed(7)
+    for G, n, rows in ((1, (1 << 21) + 64, 1 << 16), (2048, 64, 40)):
+        r = torch.randint(0, rows, (G, n), generator=gen,
+                          device=engine.device)
+        r = torch.where(torch.rand((G, n), generator=gen,
+                                   device=engine.device) < 0.2,
+                        ct.ROW_SENTINEL, r)
+        w = torch.randint(0, 9, (G, n), generator=gen, device=engine.device)
+        largest[f"G={G} n={n}"] = (ct.sort_weighted(r, w), False, False)
+    configs = []
+    for label, (ks, keys, skip) in largest.items():
+        for mode, sk in ((False, False), (True, False), (True, True)):
+            got = real(ks, mode, sk)
+            want = ct.rle_sorted_plain(ks, mode, sk)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"rle_sorted {label} rank_keys={mode} skip_inj={sk} "
+                  "differs from its plain version")
+        G, n = ks.shape
+        nbytes = G * n * (RLE_READ_BYTES + RLE_WRITE_BYTES[keys])
+        cfg = {"case": label, "G": G, "n": n, "rank_keys": keys,
+               "ms": median_ms(lambda: real(ks, keys, skip), 20),
+               "device_ms": device_ms(lambda: real(ks, keys, skip),
+                                      "rle_sorted_kernel"),
+               "plain_ms": median_ms(
+                   lambda: ct.rle_sorted_plain(ks, keys, skip), 5),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+        configs.append(cfg)
+        print(f"rle_sorted {label} [G={G}, n={n}] rank_keys={keys}: call "
+              f"{cfg['ms']} ms (median, CUDA events), device "
+              f"{cfg['device_ms']} ms (torch.profiler mean), bound "
+              f"{cfg['bound_ms']} ms by bytes "
+              f"({cfg['bound_ms'] / cfg['device_ms']:.4f} of it), plain "
+              f"torch {cfg['plain_ms']} ms; equal to the plain version in "
+              f"both modes [{card}]")
+    res = {k: configs[0][k] for k in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by")}
+    return {**res, "library_ms": None, "configs": configs}
 
 
 def concurrent_requests(url: str, reqs, bodies, card: str,
@@ -1930,7 +2020,11 @@ def main() -> int:
           f"{engine.stats['legacy']}; certificate re-run rows "
           f"{engine.stats['rerun_rows']}")
     check(engine.stats["hot"] > 0, "no hot chunk was served")
+    check(engine.stats["rle"] == engine.stats["hot"] + engine.stats["cold"]
+          + engine.stats["legacy"], f"rle_sorted launches {engine.stats}")
     phase("serve")
+    rle = rle_phase(engine, reqs, card)
+    phase("rle")
 
     sync_phase(engine, queries)
     phase("sync")
@@ -1983,6 +2077,10 @@ def main() -> int:
          "align_batch_launches": aln_launches,
          "bench_launches": bench["extra"]["sw_align_launches"], **kern}
         for name, replaces in KERNELS] + [
+        {"name": "rle_sorted", "route": "cuda",
+         "source": "kaamer_tpu_torch/csrc/rle.cu", "replaces": None,
+         "launches": launches["rle_sorted"],
+         "launches_per_R1": launches["rle_sorted_per_R1"], **rle}] + [
         {**row, "sharded_launches": sharded(row["name"].split()[1])}
         for row in probe_rows]}))
     print(smi)

@@ -35,6 +35,7 @@ _SIGNATURES = {
     "kt_row_dma_probe": (_I, [_P, _I, _P, _I, _I, _I, _I, _P, _P]),
     "kt_smem_dyngather": (_I, [_P, _P, _I, _I, _P, _P]),
     "kt_smem_dyngather_clusters": (_I, [_P, _P, _I, _I, _I, _P, _P]),
+    "kt_rle_sorted": (_I, [_P, ctypes.c_longlong, _I, _I, _I] + [_P] * 5),
     "kt_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -10,17 +10,40 @@ widened after each gather.
 Ranking: count descending, ties by lower protein row -- lax.top_k's
 lower-index preference over the ascending-row RLE layout, reproduced with
 a stable descending sort (torch.topk promises no tie order).
+
+The weighted count after the sort is one hand-written CUDA kernel,
+rle_sorted (csrc/rle.cu); rle_sorted_plain is its plain torch version, the
+CPU path and the kernel's oracle.  A CUDA tensor always takes the kernel.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
 
 from ..codec import as_u32
+from . import _kernels
 
 ROW_SENTINEL = 0xFFFFFFFF
 _KEY_SENTINEL = torch.iinfo(torch.int64).max
+
+# kernel launches by wrapper (not counting plain-version calls), and the
+# same launches by the thread that made them (thread_launches)
+launches = {"rle_sorted": 0}
+_launch_lock = threading.Lock()
+_thread = threading.local()
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def thread_launches() -> int:
+    """rle_sorted kernel launches made so far by the calling thread."""
+    return getattr(_thread, "launches", 0)
 
 
 def _rev_cummin(x: torch.Tensor) -> torch.Tensor:
@@ -154,61 +177,114 @@ def expand_hybrid(postings, offs, cum_s, wstart, cum_t, lens_l,
     return rows, seg, valid, w
 
 
-def sort_weighted(rows: torch.Tensor, weights: torch.Tensor):
+def sort_weighted(rows: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Sort each row's (row, weight) entries by row, then weight, as one
     int64 key (row << 32) | weight: ROW_SENTINEL entries get the largest
-    key and sort last, with weight 0.  Returns (s, w) int64[B, n]."""
+    key (_KEY_SENTINEL) and sort last.  Returns the sorted keys int64[B, n],
+    which rle_sorted counts."""
     key = torch.where(rows == ROW_SENTINEL, _KEY_SENTINEL,
                       (rows << 32) | weights)
-    ks = torch.sort(key, dim=1).values
+    return torch.sort(key, dim=1).values
+
+
+def rle_sorted_plain(ks: torch.Tensor, rank_keys: bool = False,
+                     skip_inj: bool = False):
+    """rle_sorted's plain torch version: the keys unpacked, then the
+    weighted run-length encoding.  The run sums need no gathers: each lane
+    backward-fills its run's inclusive-cumsum endpoint (the nearest future
+    endpoint is the minimum over future endpoints, since the cumsum is
+    nondecreasing)."""
     sent = ks == _KEY_SENTINEL
-    return (torch.where(sent, ROW_SENTINEL, ks >> 32),
-            torch.where(sent, 0, ks & 0xFFFFFFFF))
-
-
-def rle_weighted(s: torch.Tensor, w: torch.Tensor):
-    """Weighted run-length encoding of sorted rows s: each run's weight sum
-    at its start lane, ROW_SENTINEL runs excluded.  Returns (counts
-    int64[B, n], is_start bool[B, n]).  The run sums need no gathers:
-    each lane backward-fills its run's inclusive-cumsum endpoint (the
-    nearest future endpoint is the minimum over future endpoints, since
-    the cumsum is nondecreasing)."""
+    s = torch.where(sent, ROW_SENTINEL, ks >> 32)
+    w = torch.where(sent, 0, ks & 0xFFFFFFFF)
     edge = torch.ones_like(s[:, :1], dtype=torch.bool)
     differs = s[:, 1:] != s[:, :-1]
     is_start = torch.cat([edge, differs], dim=1) & (s != ROW_SENTINEL)
     change_next = torch.cat([differs, edge], dim=1)
     wc = torch.cumsum(w, dim=1)
     wc_end = _rev_cummin(torch.where(change_next, wc, 2**62))
-    return torch.where(is_start, wc_end - wc + w, 0), is_start
+    counts = torch.where(is_start, wc_end - wc + w, 0)
+    inj = is_start & (w == 0)
+    if not rank_keys:
+        return s, counts.to(torch.int32), is_start, inj
+    hkey = torch.where(inj, (s << 32) | counts, _KEY_SENTINEL)
+    pop = is_start & (counts > 0)
+    if skip_inj:
+        pop = pop & ~inj
+    ckey = torch.where(pop, (-counts << 32) | s, _KEY_SENTINEL)
+    return hkey, ckey
+
+
+def rle_sorted(ks: torch.Tensor, rank_keys: bool = False,
+               skip_inj: bool = False):
+    """Weighted run-length encoding of sort_weighted's keys.
+
+    ks: int64[G, n], contiguous, each row ascending; a real entry's key is
+    (row << 32) | weight (row < 2^31 - 1), _KEY_SENTINEL past them.  A run
+    is a stretch of equal rows inside one row of ks; sentinel runs are
+    excluded.  Returns (s int64[G, n] the rows, ROW_SENTINEL for a
+    sentinel; counts int32[G, n] each run's weight sum at its head lane, 0
+    elsewhere; is_start bool[G, n] the heads; inj bool[G, n] heads whose
+    own weight is 0).  With rank_keys=True it returns merge_hot_cold_tam's
+    two rank keys instead, int64[G, n] each: hkey = (s << 32) | count at an
+    inj head, ckey = (-count << 32) | s at a head with count > 0 (not an
+    inj head where skip_inj), _KEY_SENTINEL elsewhere.  Run sums must stay
+    below 2^31 (weights are query positions, so a run sums to at most L).
+
+    A CPU tensor takes rle_sorted_plain; a CUDA tensor takes the kernel
+    (csrc/rle.cu) or raises."""
+    if ks.dtype != torch.int64 or ks.dim() != 2:
+        raise ValueError(f"ks: want int64 2-d, got {ks.dtype} {ks.dim()}-d")
+    if not ks.is_contiguous():
+        raise ValueError("ks must be contiguous")
+    dev = ks.device
+    if dev.type == "cpu":
+        return rle_sorted_plain(ks, rank_keys, skip_inj)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    G, n = ks.shape
+    if G * n >= 1 << 31:
+        raise ValueError(f"ks has {G * n} entries; the kernel takes < 2^31")
+    if ks.data_ptr() % 16:
+        raise ValueError("ks must be 16-byte aligned")
+    a = torch.empty_like(ks)
+    if rank_keys:
+        outs = (a, torch.empty_like(ks))
+        ptrs = [a.data_ptr(), outs[1].data_ptr(), None, None]
+    else:
+        outs = (a, torch.empty((G, n), dtype=torch.int32, device=dev),
+                torch.empty((G, n), dtype=torch.bool, device=dev),
+                torch.empty((G, n), dtype=torch.bool, device=dev))
+        ptrs = [t.data_ptr() for t in outs]
+    lib = _kernels.lib()
+    with torch.cuda.device(dev):
+        rc = lib.kt_rle_sorted(ks.data_ptr(), G * n, n, int(rank_keys),
+                               int(skip_inj), *ptrs,
+                               torch.cuda.current_stream().cuda_stream)
+    _kernels.check(rc, "rle_sorted")
+    with _launch_lock:
+        launches["rle_sorted"] += 1
+    _thread.launches = thread_launches() + 1
+    return outs
 
 
 def sort_rle(rows: torch.Tensor, weights=None):
     """Sort each row multiset and run-length encode it (count.py:sort_rle).
 
     rows: int64[B, cap] (ROW_SENTINEL padding); weights: optional int64
-    per-entry multiplicities.  Returns (s int64[B, cap] sorted rows,
-    counts int32[B, cap] with each run's weight sum at its start lane,
-    is_start bool[B, cap]; sentinels excluded).
+    per-entry multiplicities (1 each without).  Returns (s int64[B, cap]
+    sorted rows, counts int32[B, cap] with each run's weight sum at its
+    start lane, is_start bool[B, cap]; sentinels excluded).
 
-    One path replaces both of the JAX package's weighted branches (the
+    One path replaces the JAX package's three branches (unweighted, the
     packed row << bits | w key and the two-operand sort): with int64 keys,
     (row << 32) | w always fits for rows < 2^31, and since RLE sums the
     weights of a run, the order among equal rows does not change any
     count."""
-    if weights is not None:
-        s, w = sort_weighted(rows, weights)
-        counts, is_start = rle_weighted(s, w)
-        return s, counts.to(torch.int32), is_start
-    cap = rows.shape[1]
-    s = torch.sort(rows, dim=1).values
-    idx = torch.arange(cap, device=rows.device)[None, :]
-    edge = torch.ones_like(s[:, :1], dtype=torch.bool)
-    differs = s[:, 1:] != s[:, :-1]
-    is_start = torch.cat([edge, differs], dim=1) & (s != ROW_SENTINEL)
-    change_next = torch.cat([differs, edge], dim=1)
-    run_end = _rev_cummin(torch.where(change_next, idx, cap))
-    counts = torch.where(is_start, run_end - idx + 1, 0)
-    return s, counts.to(torch.int32), is_start
+    if weights is None:
+        weights = torch.ones_like(rows)
+    s, counts, is_start, _ = rle_sorted(sort_weighted(rows, weights))
+    return s, counts, is_start
 
 
 def count_topk(rows: torch.Tensor, k: int, weights=None):

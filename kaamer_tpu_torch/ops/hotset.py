@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .count import ROW_SENTINEL, rle_weighted, sort_weighted
+from .count import ROW_SENTINEL, rle_sorted, sort_weighted
 
 _KEY_MAX = torch.iinfo(torch.int64).max
 
@@ -269,15 +269,17 @@ def merge_hot_cold_tam(counts_hot, rows, w, k: int, pack_w_bits: int = 0,
     hv_i = hv.to(torch.int64)
     cand = hi.clamp(max=P - 1)
 
-    # expansion sort with the injected zero-weight candidate entries
-    s, wv = sort_weighted(
-        torch.cat([rows, cand], dim=1),
-        torch.cat([w.to(torch.int64), torch.zeros_like(cand)], dim=1))
-    counts_rle, is_start = rle_weighted(s, wv)
-    inj_lane = is_start & (wv == 0)
+    # expansion sort with the injected zero-weight candidate entries; the
+    # RLE writes both rank keys: hkey over the injected heads (exactly
+    # k_cand, distinct rows), ckey over the populated heads -- the
+    # non-injected ones when pack_w_bits > 0
+    hkey, ckey = rle_sorted(
+        sort_weighted(torch.cat([rows, cand], dim=1),
+                      torch.cat([w.to(torch.int64), torch.zeros_like(cand)],
+                                dim=1)),
+        rank_keys=True, skip_inj=bool(pack_w_bits))
 
-    # H2: the injected heads (exactly k_cand, distinct rows) by row asc
-    hkey = torch.where(inj_lane, (s << 32) | counts_rle, _KEY_MAX)
+    # H2: the injected heads by row asc
     hk = torch.topk(hkey, k_cand, dim=1, largest=False).values
     cand_s = hk >> 32
     cand_cold = hk & 0xFFFFFFFF
@@ -285,10 +287,6 @@ def merge_hot_cold_tam(counts_hot, rows, w, k: int, pack_w_bits: int = 0,
     cand_tot = cand_cold + hv_i.gather(1, hs.indices)
 
     # C1: top-k_cold cold rows, (count desc, row asc)
-    pop = is_start & (counts_rle > 0)
-    if pack_w_bits:
-        pop = pop & ~inj_lane
-    ckey = torch.where(pop, (-counts_rle << 32) | s, _KEY_MAX)
     c1 = torch.topk(ckey, k_cold, dim=1, largest=False).values
     csent = c1 == _KEY_MAX
     cc = torch.where(csent, 0, -(c1 >> 32))

@@ -31,7 +31,10 @@ the JAX engine does: the totals read of schedule_batch, the certificates
 of prefetch_batch, the chunk outputs of _finalize_pending, and the slice
 starts of a query past CAP_MAX.  Each such read is one blocking copy
 (_to_host) under a `kaamer.engine.sync` span and counted in
-engine.stats["syncs"].
+engine.stats["syncs"].  Every phase-2 chunk ends in one run-length count
+(ops/count.rle_sorted); on a card that is the rle_sorted kernel, and
+engine.stats["rle"] counts its launches, so it equals hot + cold + legacy
+there (0 on the CPU, where the plain version runs).
 
 Spans (trace.span, recorded while a torch profiler runs):
 `kaamer.engine.schedule` around schedule_batch's body, and the parts
@@ -56,7 +59,7 @@ from ..index.artifact import DBArtifact
 from ..ops import hotset
 from ..ops.count import (count_topk, dedup_runs, expand_hybrid,
                          expand_run_bitmaps, member_bitmap_from_rows,
-                         member_np, pack_bits, sort_rle)
+                         member_np, pack_bits, sort_rle, thread_launches)
 from ..ops.probe import probe_slices
 from ..trace import span
 from ..upload import upload, upload_all
@@ -767,11 +770,12 @@ class SearchEngine(PositionBitmapServing):
         self.hash_log2 = art.hash_log2
         # dispatched phase-2 chunks by kind, certificate re-run rows,
         # dispatched batches, blocking device-to-host reads (_to_host),
-        # rows counted on the host (past CAP_MAX) and hit rows whose
-        # position bitmaps the host worked out
+        # rows counted on the host (past CAP_MAX), hit rows whose
+        # position bitmaps the host worked out, and the chunks' rle_sorted
+        # kernel launches
         self.stats = {"cold": 0, "hot": 0, "legacy": 0, "rerun_rows": 0,
                       "batches": 0, "syncs": 0, "host_rows": 0,
-                      "host_bitmap_rows": 0}
+                      "host_bitmap_rows": 0, "rle": 0}
 
         # hot sets (engine.py:476-515): None => every run is cold
         self.hot_starts = None
@@ -1059,24 +1063,27 @@ class SearchEngine(PositionBitmapServing):
             bitmaps = dict(run_start=run_start, positions=pos_dev)
             if hot or legacy:
                 bitmaps["MT"] = self.MT
+            n_rle = thread_launches()
             if legacy:
                 _tally(self.stats, "legacy")
-                return _phase2_hot_legacy_impl(
+                item = _phase2_hot_legacy_impl(
                     self.postings, self.M, self.hot_starts, offs, cum_s,
                     wstart, whot, cum_t, lens_l, cap_s=cap_s, cap_t=cap_t,
                     k=k_full, **bitmaps), pos_dev
-            if hot:
+            elif hot:
                 _tally(self.stats, "hot")
-                return _phase2_hot_impl(
+                item = _phase2_hot_impl(
                     self.postings, self.M, self.hot_starts, offs, cum_s,
                     wstart, whot, cum_t, lens_l, cap_s=cap_s, cap_t=cap_t,
                     k=k_full, pack_w_bits=self._pack_w_bits(L),
                     k_cold=self._k_cold, **bitmaps), pos_dev, True
-            _tally(self.stats, "cold")
-            outs2 = _phase2_grouped_impl(self.postings, offs, cum_s,
-                                         wstart, cum_t, lens_l, cap_s=cap_s,
-                                         cap_t=cap_t, k=k2, **bitmaps)
-            return outs2, pos_dev, False
+            else:
+                _tally(self.stats, "cold")
+                item = _phase2_grouped_impl(
+                    self.postings, offs, cum_s, wstart, cum_t, lens_l,
+                    cap_s=cap_s, cap_t=cap_t, k=k2, **bitmaps), pos_dev, False
+            _tally(self.stats, "rle", thread_launches() - n_rle)
+            return item
 
     def _host_bitmaps_np(self, qc: QueryCounts,
                          hit_rows) -> Dict[int, np.ndarray]:

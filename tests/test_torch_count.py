@@ -125,6 +125,85 @@ def test_count_topk_tie_heavy(weighted):
     assert got[1][0, :5].tolist() == sorted(got[1][0, :5].tolist())
 
 
+def _old_chain(rows, w):
+    """sort_weighted + rle_weighted + merge_hot_cold_tam's injected-head
+    flag as the port computed them before rle_sorted: (s, counts int64,
+    is_start, inj)."""
+    key = torch.where(rows == SENT, ct._KEY_SENTINEL, (rows << 32) | w)
+    ks = torch.sort(key, dim=1).values
+    sent = ks == ct._KEY_SENTINEL
+    s = torch.where(sent, SENT, ks >> 32)
+    wv = torch.where(sent, 0, ks & 0xFFFFFFFF)
+    edge = torch.ones_like(s[:, :1], dtype=torch.bool)
+    differs = s[:, 1:] != s[:, :-1]
+    is_start = torch.cat([edge, differs], dim=1) & (s != SENT)
+    change_next = torch.cat([differs, edge], dim=1)
+    wc = torch.cumsum(wv, dim=1)
+    wc_end = torch.flip(torch.cummin(torch.flip(
+        torch.where(change_next, wc, 2**62), [1]), dim=1).values, [1])
+    counts = torch.where(is_start, wc_end - wc + wv, 0)
+    return s, counts, is_start, is_start & (wv == 0)
+
+
+def _rle_entries(rng, case):
+    """(rows, weights) int64 of the kernel tests' cases, at CPU sizes."""
+    G, n, n_rows, pad, zero_w = {
+        "random": (16, 5000, 300, 0.2, 0.0),
+        "one_run": (4, 3000, 1, 0.0, 0.0),
+        "tile_edges": (3, 12_000, 12, 0.1, 0.0),
+        "all_sentinel": (5, 700, 10, 1.0, 0.0),
+        "injected": (8, 2000, 200, 0.2, 0.1),
+        "ragged": (7, 1037, 50, 0.2, 0.0),
+        "one_long_row": (1, (1 << 21) + 64, 1 << 15, 0.2, 0.0),
+        "many_short_rows": (2048, 64, 20, 0.2, 0.05)}[case]
+    rows = rng.integers(0, n_rows, size=(G, n)).astype(np.int64)
+    w = rng.integers(1, 9, size=(G, n)).astype(np.int64)
+    w[rng.random((G, n)) < zero_w] = 0
+    rows[rng.random((G, n)) < pad] = SENT
+    w[rows == SENT] = 0
+    return torch.from_numpy(rows), torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("case", ["random", "one_run", "tile_edges",
+                                  "all_sentinel", "injected", "ragged",
+                                  "one_long_row", "many_short_rows"])
+def test_rle_sorted_plain_equals_the_old_chain(case):
+    """rle_sorted on the CPU (its plain version) gives what sort_weighted
+    + rle_weighted + the injected-head flag gave, and its rank keys are
+    merge_hot_cold_tam's keys built from those."""
+    rows, w = _rle_entries(np.random.default_rng(len(case)), case)
+    s0, c0, st0, inj0 = _old_chain(rows, w)
+    ks = ct.sort_weighted(rows, w)
+    s, c, st, inj = ct.rle_sorted(ks)
+    assert c.dtype == torch.int32
+    for got, want in ((s, s0), (c, c0.to(torch.int32)), (st, st0),
+                      (inj, inj0)):
+        assert torch.equal(got, want)
+    for skip_inj in (False, True):
+        hkey, ckey = ct.rle_sorted(ks, rank_keys=True, skip_inj=skip_inj)
+        pop = st0 & (c0 > 0) & ~(inj0 & skip_inj)
+        assert torch.equal(hkey, torch.where(inj0, (s0 << 32) | c0,
+                                             ct._KEY_SENTINEL))
+        assert torch.equal(ckey, torch.where(pop, (-c0 << 32) | s0,
+                                             ct._KEY_SENTINEL))
+    if case == "injected":
+        assert inj.any()
+    if case == "all_sentinel":
+        assert not st.any() and not c.any()
+
+
+def test_rle_sorted_rejects_bad_arguments():
+    ks = ct.sort_weighted(*_rle_entries(np.random.default_rng(0), "ragged"))
+    with pytest.raises(ValueError):
+        ct.rle_sorted(ks.int())
+    with pytest.raises(ValueError):
+        ct.rle_sorted(ks.t())
+    with pytest.raises(ValueError):
+        ct.rle_sorted(ks[0])
+    with pytest.raises(ValueError):
+        ct.rle_sorted(ks.to("meta"))
+
+
 def test_member_np_copy_matches():
     rng = np.random.default_rng(9)
     postings = np.concatenate([np.sort(rng.choice(500, 40, replace=False))

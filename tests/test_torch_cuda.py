@@ -16,6 +16,7 @@ import torch
 
 from kaamer_tpu_torch.bench import probe_microbench as pmb
 from kaamer_tpu_torch.ops import _kernels, hotset
+from kaamer_tpu_torch.ops import count as ct
 from kaamer_tpu_torch.ops.matrices import LETTER_INDEX, get_matrix_scores
 from kaamer_tpu_torch.ops import probe_bench as pb
 from kaamer_tpu_torch.ops import swalign_cuda as swc
@@ -284,3 +285,62 @@ def test_hot_matmul_exact_on_card(cuda, L):
         out_dtype=torch.bfloat16 if L <= 256 else torch.float32)
     np.testing.assert_array_equal(out.float().cpu().numpy().astype(np.int64),
                                   ref)
+
+
+def _sorted_keys(rng, G, n, rows, pad=0.2, zero_w=0.0, wmax=9):
+    """sort_weighted's keys of random (row, weight) entries: rows below
+    `rows`, a share `pad` of sentinels, a share `zero_w` of weight 0
+    (injected candidates)."""
+    r = rng.integers(0, rows, size=(G, n)).astype(np.int64)
+    w = rng.integers(1, wmax, size=(G, n)).astype(np.int64)
+    w[rng.random((G, n)) < zero_w] = 0
+    r[rng.random((G, n)) < pad] = ct.ROW_SENTINEL
+    return ct.sort_weighted(torch.from_numpy(r), torch.from_numpy(w))
+
+
+def _rle_case(rng, case):
+    if case == "random":
+        return _sorted_keys(rng, 16, 5000, 300)
+    if case == "one_run":  # each row a single run of one row value
+        return _sorted_keys(rng, 4, 3000, 1, pad=0.0)
+    if case == "tile_edges":  # runs of ~1000 entries across many steps
+        return _sorted_keys(rng, 3, 12_000, 12, pad=0.1)
+    if case == "all_sentinel":
+        return _sorted_keys(rng, 5, 700, 10, pad=1.0)
+    if case == "injected":  # zero-weight heads, as the TAM injects them
+        return _sorted_keys(rng, 8, 2000, 200, zero_w=0.1)
+    if case == "ragged":  # n a multiple of neither a lane nor a step
+        return _sorted_keys(rng, 7, 1037, 50)
+    if case == "one_long_row":
+        return _sorted_keys(rng, 1, (1 << 21) + 64, 1 << 15)
+    assert case == "many_short_rows"
+    return _sorted_keys(rng, 2048, 64, 20, zero_w=0.05)
+
+
+@pytest.mark.parametrize("case", ["random", "one_run", "tile_edges",
+                                  "all_sentinel", "injected", "ragged",
+                                  "one_long_row", "many_short_rows"])
+def test_rle_sorted_matches_plain(cuda, case):
+    """The rle_sorted kernel == rle_sorted_plain on the same card tensors,
+    in both modes (rank keys with and without the injected heads)."""
+    ks = _rle_case(np.random.default_rng(len(case)), case).to(cuda)
+    for rank_keys, skip_inj in ((False, False), (True, False), (True, True)):
+        before = ct.launches["rle_sorted"]
+        got = ct.rle_sorted(ks, rank_keys, skip_inj)
+        assert ct.launches["rle_sorted"] == before + 1
+        want = ct.rle_sorted_plain(ks, rank_keys, skip_inj)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+def test_rle_sorted_rejects_bad_arguments(cuda):
+    ks = _sorted_keys(np.random.default_rng(0), 4, 100, 10).to(cuda)
+    with pytest.raises(ValueError):
+        ct.rle_sorted(ks.int())
+    with pytest.raises(ValueError):
+        ct.rle_sorted(ks.to("meta"))
+    with pytest.raises(ValueError):
+        ct.rle_sorted(ks.t())
+    with pytest.raises(ValueError):
+        ct.rle_sorted(ks[0])

@@ -216,15 +216,22 @@ def _tam_oracle(counts_hot, rows, w, k):
 
 
 @pytest.mark.parametrize("pack_w_bits", [9, 0])
-@pytest.mark.parametrize("seed", [3, 4, 5])
+@pytest.mark.parametrize("seed", [3, 4, 5, 6, 7])
 def test_merge_tam_fuzz(pack_w_bits, seed):
     """TAM on random multisets equals JAX (all three outputs, both
-    branches) and every certified row equals the brute force."""
+    branches) and every certified row equals the brute force.  Seeds 6
+    and 7 draw the cold rows from the hot candidates' range, so that most
+    injected entries join a cold run (their heads then carry a cold
+    count: rle_sorted's rank keys)."""
     rng = np.random.default_rng(seed)
     G, P, cap, k = 16, 4096, 512, 16
     counts_hot = (rng.integers(0, 9, size=(G, P))
                   * (rng.random((G, P)) < 0.02)).astype(np.float32)
     rows, w = _cold_multiset(rng, G, P, cap)
+    if seed >= 6:
+        hot = np.flatnonzero(counts_hot.max(axis=0))
+        real = rows != SENT
+        rows[real] = rng.choice(hot, size=int(real.sum()))
     c, h, ex = _tam_both(counts_hot, rows, w, k, pack_w_bits)
     wc, wh = _tam_oracle(counts_hot, rows, w, k)
     assert ex.sum() > G // 2
