@@ -22,7 +22,8 @@ bench.py: the database comes from the port's own generator
      warp a pair) on 512 random pairs (30-2048 residues) plus fixed
      cases, exactly equal to its plain torch version on the card, scores
      equal to the host DP; times it at B=256, m ~ n ~ 250, and in the
-     longer query buckets;
+     longer query buckets; then 64 pairs of queries of 2,049-3,885
+     residues (R = 64, two strips), checked the same way and timed;
   4. builds (or reuses, .bench_cache/skew_N) the skewed database and loads
      it onto the card with its hot sets;
   5. serves it with the port's server and POSTs R1 (2048 queries, TSV),
@@ -155,6 +156,8 @@ SW_OPS_PER_CELL = 17
 # goes at 32 banks (words) a clock an SM
 DYNGATHER_OPS = 3
 SMEM_WORDS_PER_S = 132 * 32 * 1.98e9
+# pairs of the kernel phase's strip batch (queries of 2,049-3,885 residues)
+STRIP_PAIRS = 64
 # torch.profiler sessions tried before a device time falls back to CUDA events
 PROFILER_TRIES = 3
 # the Pallas probes: (probe, the pallas_call it replaces)
@@ -200,6 +203,23 @@ def random_pairs(rng, n: int, lo: int, hi: int):
                 del s[a:a + int(rng.integers(1, 20))]
             r = "".join(s)
         pairs.append((q, r))
+    return pairs
+
+
+def strip_pairs(rng, n: int):
+    """n pairs whose queries take the kernel's two strips of 2,048 rows:
+    2,049-3,885 residues (the 1M database's longest), related and
+    unrelated as random_pairs makes them, every third subject a window of
+    30-400 residues of its query with point mutations."""
+    pairs = random_pairs(rng, n, 2049, 3885)
+    for t in range(0, n, 3):
+        q = pairs[t][0]
+        w = int(rng.integers(30, 401))
+        a = int(rng.integers(0, len(q) - w))
+        s = list(q[a:a + w])
+        for _ in range(w // 12):
+            s[int(rng.integers(0, w))] = AA[int(rng.integers(0, 20))]
+        pairs[t] = (q, "".join(s))
     return pairs
 
 
@@ -393,6 +413,38 @@ def kernel_phase(device, rng, n_pairs: int, max_len: int, workers: int,
               f"{bound} ms by {bound_by} ({bound / cfg['device_ms']:.4f} of "
               f"it), plain torch {cfg.get('plain_ms', 'not timed')} ms "
               f"[{card}]")
+
+    # queries past 2,048 residues: the strip instantiation (R = 64, two
+    # strips, H and F carried across the border in global memory)
+    pairs = strip_pairs(rng, STRIP_PAIRS)
+    args = pair_tensors(pairs, device)
+    out = swc.sw_align(*args, 11, 1)
+    err = align_err(out, swc.sw_align_plain(*args, 11, 1))
+    with ProcessPoolExecutor(max_workers=workers, mp_context=
+                             multiprocessing.get_context("spawn")) as pool:
+        host = list(pool.map(_host_score, pairs))
+    scores = out[0].cpu().numpy()
+    m_pad = args[0].shape[1]
+    R = swc.rows_per_lane(m_pad)
+    print(f"kernel phase: {len(pairs)} pairs of queries 2049-3885 residues "
+          f"(R={R}, {swc.strips(R, m_pad)} strips), sw_align max_abs_err "
+          f"{err} vs plain, scores == host DP: "
+          f"{bool((scores == host).all())}")
+    check(R == 64 and swc.strips(R, m_pad) == 2, "not two strips of R = 64")
+    check(err == 0, "sw_align's strips disagree with its plain version")
+    check((scores == np.asarray(host)).all(), "strip scores != host DP")
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    bound, bound_by = sw_bound(*args[:4], out[3])
+    cfg = {"B": len(pairs), "len": [2049, 3885], "rows_per_lane": R,
+           "strips": swc.strips(R, m_pad), "max_abs_err": err,
+           "ms": median_ms(lambda: swc.sw_align(*args, 11, 1), 5),
+           "device_ms": device_ms(lambda: swc.sw_align(*args, 11, 1),
+                                  "sw_align_kernel", reps=5),
+           "bound_ms": bound, "bound_by": bound_by}
+    res["configs"].append(cfg)
+    print(f"sw_align B={len(pairs)} queries 2049-3885 (R={R}, two strips): "
+          f"call {cfg['ms']} ms, device {cfg['device_ms']} ms, bound {bound} "
+          f"ms by {bound_by} ({bound / cfg['device_ms']:.4f} of it) [{card}]")
     return res
 
 

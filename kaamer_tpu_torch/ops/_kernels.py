@@ -31,7 +31,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "kt_sw_align": (_I, [_P] * 5 + [_I] * 9 + [_P] * 6),
     "kt_sw_align_plan": (_I, [_I, _I, _I, _P, _P]),
-    "kt_sw_align_pair_bytes": (ctypes.c_longlong, [_I, _I]),
+    "kt_sw_align_pair_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "kt_row_dma_probe": (_I, [_P, _I, _P, _I, _I, _I, _I, _P, _P]),
     "kt_smem_dyngather": (_I, [_P, _P, _I, _I, _P, _P]),
     "kt_smem_dyngather_clusters": (_I, [_P, _P, _I, _I, _I, _P, _P]),

@@ -1,10 +1,16 @@
 """Batch alignment for -aln on torch (kaamer_tpu/ops/swalign.py).
 
-The routing rule is the JAX package's: a batch of at least 4 pairs whose
-sequences are all at most 2048 residues runs on the device
-(ops/swalign_cuda.py); any other batch runs the host DP (_smith_waterman)
-and is counted in HOST_DP_PAIRS.  Nothing else falls back: a device
-failure raises.
+The routing rule is per pair: every pair whose sequences are each at most
+MAX_LEN residues runs on the device (ops/swalign_cuda.py), whatever else
+its batch holds; a pair with a longer sequence runs the host DP
+(_smith_waterman) on its own and is counted in HOST_DP_PAIRS.  The device
+pairs of a batch go in one launch, padded to its longest query and
+reference: each warp sweeps its own pair's columns and strips, and a
+launch lasts as long as its slowest warp, so one launch of a flush takes
+less device time than launches split by length that run in turn.
+Nothing else falls back: a device failure raises.  (The JAX package
+sends a whole batch to the host DP when it has fewer than 4 pairs or any
+sequence past 2048 residues; the paths are the same either way.)
 
 The host half is the JAX package's, copied unchanged: the wavefront Gotoh
 DP with its traceback (_dp_matrices, _smith_waterman) and the
@@ -19,21 +25,29 @@ replaced by '*' before alignment (align.go:38, 53-55).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
 from ..records import KStats
 from ..search.results import AlignmentResult
+from ..trace import span
 from .matrices import (LETTER_INDEX, MatrixScores, NoMatrixError,
                        get_matrix_scores)
 from .swalign_cuda import MAX_LEN, sw_batch_dispatch, sw_batch_resolve
 
 NEG_INF = np.int32(-(10**8))
 
-# pairs aligned by the host DP under the routing rule (< 4 pairs or a
-# sequence longer than MAX_LEN)
+# pairs aligned by the host DP under the routing rule (a sequence longer
+# than MAX_LEN)
 HOST_DP_PAIRS = 0
+
+# what align_batch_dispatch counts of a batch: its pairs, those aligned on
+# the device and by the host DP, the kernel's launches, and the cells of
+# its pairs (qlen * rlen) and of the rows its launches give them (32R a
+# strip, every strip the query takes, times rlen)
+ALIGN_COUNTS = ("aln_pairs", "aln_device_pairs", "aln_host_pairs",
+                "aln_launches", "aln_cells", "aln_padded_cells")
 
 
 def _codes(seq: str) -> np.ndarray:
@@ -122,32 +136,43 @@ def _smith_waterman(
 
 def align_batch_dispatch(pairs, db_stats, sub_matrix: str, gap_open: int,
                          gap_extend: int, *, device):
-    """Enqueue the device DP for a pair batch on `device` (or leave it to
-    the host DP under the routing rule); returns a handle for
-    align_batch_resolve.  Raises NoMatrixError for an unknown matrix."""
+    """Enqueue the device DP for a pair batch on `device`, one launch for
+    every pair within MAX_LEN; pairs past it are left to the host DP.
+    Returns a handle for align_batch_resolve: (pairs, scores, db_stats,
+    launch, host pairs, counts), launch (the device pairs' indices, the
+    launch's op arrays) or None, counts by ALIGN_COUNTS.  Raises
+    NoMatrixError for an unknown matrix."""
     scores = get_matrix_scores(sub_matrix, gap_open, gap_extend)
     pairs = [(q.replace("U", "*").replace("u", "*"),
               r.replace("U", "*").replace("u", "*")) for q, r in pairs]
-    dev = None
-    if len(pairs) >= 4 and max(max(len(q), len(r))
-                               for q, r in pairs) <= MAX_LEN:
-        dev = sw_batch_dispatch([_codes(q) for q, _ in pairs],
-                                [_codes(r) for _, r in pairs], scores, device)
-    return pairs, scores, db_stats, dev
+    on_device = [max(len(q), len(r)) <= MAX_LEN for q, r in pairs]
+    host = [b for b, ok in enumerate(on_device) if not ok]
+    dev = [b for b, ok in enumerate(on_device) if ok]
+    counts = dict.fromkeys(ALIGN_COUNTS, 0)
+    counts.update(aln_pairs=len(pairs), aln_host_pairs=len(host),
+                  aln_device_pairs=len(dev))
+    launch = (dev, sw_batch_dispatch([_codes(pairs[b][0]) for b in dev],
+                                     [_codes(pairs[b][1]) for b in dev],
+                                     scores, device, counts)) if dev else None
+    return pairs, scores, db_stats, launch, host, counts
 
 
 def align_batch_resolve(handle):
-    """Finish an align_batch_dispatch: fetch the device paths (or run the
-    host DP) and build the AlignmentResults."""
+    """Finish an align_batch_dispatch: fetch the launch's device paths,
+    run the host DP for the pairs past MAX_LEN (one `kaamer.align.host_dp`
+    span each), and build the AlignmentResults in batch order."""
     global HOST_DP_PAIRS
-    pairs, scores, db_stats, dev = handle
-    if dev is not None:
-        ops = sw_batch_resolve(dev)
-    else:
-        HOST_DP_PAIRS += len(pairs)
-        ops = [_smith_waterman(_codes(q), _codes(r), scores.sub_matrix,
-                               scores.gap_open, scores.gap_extend)
-               for q, r in pairs]
+    pairs, scores, db_stats, launch, host, _ = handle
+    ops: List = [None] * len(pairs)
+    if launch is not None:
+        for b, got in zip(launch[0], sw_batch_resolve(launch[1])):
+            ops[b] = got
+    for b in host:
+        HOST_DP_PAIRS += 1
+        q, r = pairs[b]
+        with span("kaamer.align.host_dp"):
+            ops[b] = _smith_waterman(_codes(q), _codes(r), scores.sub_matrix,
+                                     scores.gap_open, scores.gap_extend)
     return [result_from_ops(q, r, scores, q_ops, r_ops, db_stats)
             for (q, r), (_, q_ops, r_ops) in zip(pairs, ops)]
 
@@ -156,7 +181,7 @@ def align_batch(pairs, db_stats: KStats, sub_matrix: str = "blosum62",
                 gap_open: int = 11, gap_extend: int = 1, *, device):
     """Align many (query, ref) pairs on `device` under the routing rule
     (sw_align on a CUDA device, its plain version on the CPU, the host DP
-    for small or long batches); returns a list of AlignmentResult
+    for a pair past MAX_LEN); returns a list of AlignmentResult
     (kaamer_tpu/ops/swalign.py:147)."""
     return align_batch_resolve(align_batch_dispatch(
         pairs, db_stats, sub_matrix, gap_open, gap_extend, device=device))
@@ -166,7 +191,7 @@ def align(query_seq: str, ref_seq: str, db_stats: KStats,
           sub_matrix: str = "blosum62", gap_open: int = 11,
           gap_extend: int = 1, *, device) -> AlignmentResult:
     """One pair's AlignmentResult (kaamer_tpu/ops/swalign.py:125): a batch
-    of one, which the routing rule sends to the host DP."""
+    of one, under the same routing rule."""
     return align_batch([(query_seq, ref_seq)], db_stats, sub_matrix,
                        gap_open, gap_extend, device=device)[0]
 
@@ -223,7 +248,13 @@ def result_from_ops(
     raw -= gap_openings * scores.gap_open + (n_gap - gap_openings) * scores.gap_extend
 
     bitscore = (scores.lam * raw - math.log(scores.K)) / math.log(2)
-    evalue = float(len(query_seq)) * float(db_stats.NumberOfAA) / math.pow(2, bitscore)
+    try:
+        scale = math.pow(2, bitscore)
+    except OverflowError:
+        # a bit score of 1024 or more: Go's math.Pow gives +Inf there, and
+        # the E-value 0 (a self-hit of about 550 residues gets there)
+        scale = math.inf
+    evalue = float(len(query_seq)) * float(db_stats.NumberOfAA) / scale
 
     q_idx = qo[qo >= 0]
     r_idx = ro[ro >= 0]

@@ -12,10 +12,14 @@ step and are held against it on the CPU:
   sw_traceback_plain  _build_traceback's lockstep walk over dirs
 
 A CUDA tensor runs the kernel or raises; a CPU tensor runs the plain
-version.  The kernel keeps its directions on chip as nibbles in a
-step-major layout of its own; pack_dirs_nibbles and sw_walk_nibbles_plain
-rebuild that layout and walk it in torch, so the kernel's index
-arithmetic is under CPU tests too.
+version (in blocks of pairs of like padded length).  The kernel keeps its directions on chip as nibbles in a step-major layout
+of its own, one block of words a strip of 32R query rows;
+pack_dirs_nibbles and sw_walk_nibbles_plain rebuild that layout and walk
+it in torch, so the kernel's index arithmetic is under CPU tests too.
+
+Every pair whose query and reference are each at most MAX_LEN residues
+runs on the device: queries past the warp's 32R rows (R = 64 past 2048
+residues) are swept in strips, one after the other.
 """
 
 from __future__ import annotations
@@ -26,12 +30,16 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..trace import span
 from ..upload import upload, upload_all
 from . import _kernels
 from .matrices import MatrixScores
 
 NEG = -(10**8)
-MAX_LEN = 2048
+# the longest query or reference the kernel takes; its start-cell key keeps
+# i - 1 in KEY_BITS bits (csrc/swalign.cu SW_KEY_BITS)
+KEY_BITS = 13
+MAX_LEN = 1 << KEY_BITS
 N_LETTERS = 24
 
 # kernel launches by wrapper (not counting plain-version calls)
@@ -49,9 +57,14 @@ def _d_pad(m_pad: int, n_pad: int) -> int:
 
 def rows_per_lane(m_pad: int) -> int:
     """The kernel's R, query rows per lane of its warp: 4 * ceil(m_pad /
-    128), pad_pairs' 128-buckets, at most 64 (2048 rows: a longer query
-    goes to the host DP)."""
+    128), pad_pairs' 128-buckets, at most 64 (a strip of 2048 rows: a
+    longer query takes several strips)."""
     return min(64, 4 * -(-m_pad // 128))
+
+
+def strips(R: int, rows: int) -> int:
+    """Strips of 32R query rows that `rows` rows take (at least one)."""
+    return max(1, -(-rows // (32 * R)))
 
 
 def _check_args(qcodes, rcodes, qlens, rlens, mat):
@@ -194,24 +207,54 @@ def sw_traceback_plain(dirs, best, qlens):
 
 def sw_align_plain(qcodes, rcodes, qlens, rlens, mat, gap_open: int,
                    gap_extend: int):
-    """sw_align's plain version: sw_traceback_plain(*sw_wavefront_plain)."""
-    dirs, best = sw_wavefront_plain(qcodes, rcodes, qlens, rlens, mat,
-                                    gap_open, gap_extend)
-    return sw_traceback_plain(dirs, best, qlens)
+    """sw_align's plain version: sw_traceback_plain(*sw_wavefront_plain)
+    over blocks of pairs whose padded lengths share a power-of-two class,
+    each block cut to its own pads, in the batch's shapes (ops past n_ops
+    -1).  The wavefront pays for every padded cell of B x W x d_pad, so one
+    long pair would set that size for the whole batch; the kernel does not
+    (each warp sweeps its own pair)."""
+    B, m_pad = qcodes.shape
+    dev = qcodes.device
+    d_pad = _d_pad(m_pad, rcodes.shape[1])
+    out = (torch.zeros(B, dtype=torch.int32, device=dev),
+           torch.full((B, d_pad), -1, dtype=torch.int16, device=dev),
+           torch.full((B, d_pad), -1, dtype=torch.int16, device=dev),
+           torch.zeros(B, dtype=torch.int32, device=dev))
+    blocks: dict = {}
+    for b, (m, n) in enumerate(zip(qlens.tolist(), rlens.tolist())):
+        mp, npd = padded(m, n)
+        blocks.setdefault(((mp + 1).bit_length(), npd.bit_length()),
+                          []).append(b)
+    for idx in blocks.values():
+        idx = torch.tensor(idx, device=dev)
+        mp, npd = padded(int(qlens[idx].max()), int(rlens[idx].max()))
+        ql = qlens[idx]
+        dirs, best = sw_wavefront_plain(qcodes[idx, :mp], rcodes[idx, :npd],
+                                        ql, rlens[idx], mat, gap_open,
+                                        gap_extend)
+        for o, g in zip(out, sw_traceback_plain(dirs, best, ql)):
+            if g.dim() == 1:
+                o[idx] = g
+            else:
+                o[idx, :g.shape[1]] = g
+    return out
 
 
 def pack_dirs_nibbles(dirs, qlens, rlens, R: int):
-    """sw_wavefront_plain's direction bytes in the kernel's on-chip layout
-    for R rows a lane: int64[B, steps, ceil(R/8), 32] holding uint32 words,
-    steps = max(rlens) + 31.  Cell (i, j), lane k = (i-1) // R, t = (i-1)
-    % R, sits at step s = j - 1 + k, word t // 8, lane k, bits 4 (t % 8)
-    .. +3; cells outside 1 <= i <= qlen, 1 <= j <= rlen are 0."""
+    """sw_wavefront_plain's direction bytes in the kernel's layout for R
+    rows a lane: int64[B, n_strips * steps, ceil(R/8), 32] holding uint32
+    words, steps = max(rlens) + 31 a strip, n_strips = strips(R,
+    max(qlens)).  Cell (i, j) lies in strip p = (i-1) // 32R, lane k =
+    u // R, t = u % R for u = (i-1) % 32R, at step p * steps + j - 1 + k,
+    word t // 8, lane k, bits 4 (t % 8) .. +3; cells outside 1 <= i <=
+    qlen, 1 <= j <= rlen are 0."""
     B, d_pad, W = dirs.shape
     dev = dirs.device
     nw = (R + 7) // 8
     n_cols = int(rlens.max()) if B else 0
     steps = n_cols + 31
-    i = torch.arange(1, 32 * R + 1, device=dev)[None, :, None]
+    n_strips = strips(R, int(qlens.max()) if B else 0)
+    i = torch.arange(1, n_strips * 32 * R + 1, device=dev)[None, :, None]
     j = torch.arange(1, n_cols + 1, device=dev)[None, None, :]
     valid = ((i < W) & (i <= qlens.long()[:, None, None])
              & (j <= rlens.long()[:, None, None]))
@@ -220,39 +263,43 @@ def pack_dirs_nibbles(dirs, qlens, rlens, R: int):
     nib = flat.gather(1, (d * W + i.clamp(max=W - 1)).expand(
         B, -1, -1).reshape(B, -1)).reshape(valid.shape)
     nib = torch.where(valid, nib, 0)
-    k = (i - 1) // R
-    t = (i - 1) % R
-    pos = ((j - 1 + k) * nw + t // 8) * 32 + k
-    words = torch.zeros((B, steps * nw * 32), dtype=torch.int64, device=dev)
+    p, u = (i - 1) // (32 * R), (i - 1) % (32 * R)
+    k, t = u // R, u % R
+    pos = ((p * steps + j - 1 + k) * nw + t // 8) * 32 + k
+    words = torch.zeros((B, n_strips * steps * nw * 32), dtype=torch.int64,
+                        device=dev)
     words.scatter_add_(1, pos.expand(B, -1, -1).reshape(B, -1),
                        (nib << (4 * (t % 8))).reshape(B, -1))
-    return words.reshape(B, steps, nw, 32)
+    return words.reshape(B, n_strips * steps, nw, 32)
 
 
 def sw_walk_nibbles_plain(words, best, qlens, R: int, d_pad: int):
     """The kernel's start-cell choice and walk over pack_dirs_nibbles'
-    layout: each lane's maximum over its R rows of key = h << 11 | (2047 -
-    (i - 1)) (rows past qlen do not count), the warp's maximum key, score
-    and i decoded from it, j from best's diagonal; then the walk of
+    layout: the maximum over every strip's rows of key = h << KEY_BITS |
+    (MAX_LEN - 1 - (i - 1)) (rows past qlen do not count), score and i
+    decoded from it, j from best's diagonal; then the walk of
     sw_traceback_plain, reading nibbles.  Equals sw_traceback_plain(dirs,
     best, qlens)."""
-    B, steps, nw, _ = words.shape
+    B, total_steps, nw, _ = words.shape
     W = best.shape[2]
     dev = words.device
-    rows = torch.arange(1, 32 * R + 1, device=dev)
+    n_strips = strips(R, int(qlens.max()) if B else 0)
+    steps = total_steps // n_strips
+    rows = torch.arange(1, n_strips * 32 * R + 1, device=dev)
     ok = (rows < W)[None, :] & (rows[None, :] <= qlens.long()[:, None])
     bv = torch.where(ok, best[:, 0, rows.clamp(max=W - 1)].long(), 0)
-    keys = (bv << 11) + (2047 - (rows - 1))
-    key = keys.reshape(B, 32, R).max(dim=2).values.max(dim=1).values
-    score = key >> 11
-    i = torch.where(score > 0, 2048 - (key & 2047), 0)
+    keys = (bv << KEY_BITS) + (MAX_LEN - 1 - (rows - 1))
+    key = keys.max(dim=1).values
+    score = key >> KEY_BITS
+    i = torch.where(score > 0, MAX_LEN - (key & (MAX_LEN - 1)), 0)
     j = best[:, 1, :].gather(1, i.clamp(max=W - 1)[:, None])[:, 0].long() - i
     flat = words.reshape(B, -1)
 
     def read(i, j):
-        k = (i - 1).clamp(min=0) // R
-        t = (i - 1).clamp(min=0) % R
-        s = (j - 1 + k).clamp(0, steps - 1)
+        u = (i - 1).clamp(min=0)
+        p, u = u // (32 * R), u % (32 * R)
+        k, t = u // R, u % R
+        s = p * steps + (j - 1 + k).clamp(0, steps - 1)
         w = flat.gather(1, ((s * nw + t // 8) * 32 + k)[:, None])[:, 0]
         return (w >> (4 * (t % 8))) & 15
 
@@ -272,7 +319,8 @@ def sw_align(qcodes, rcodes, qlens, rlens, mat, gap_open: int,
     """Smith-Waterman scores and alignment paths of B pairs.
 
     qcodes uint8[B, m_pad], rcodes uint8[B, n_pad] LETTER_INDEX codes;
-    qlens/rlens int32[B] (<= m_pad, <= n_pad, <= 2048); mat int32[24, 24].
+    qlens/rlens int32[B] (<= m_pad, <= n_pad, <= MAX_LEN); mat int32[24,
+    24].
     Returns (score int32[B], q_ops int16[B, d_pad], r_ops int16[B, d_pad],
     n_ops int32[B]), d_pad = ceil8(m_pad + n_pad + 1): the first n_ops[b]
     entries of q_ops/r_ops are the forward path (-1 marks a gap column);
@@ -298,6 +346,7 @@ def sw_align(qcodes, rcodes, qlens, rlens, mat, gap_open: int,
                               gap_extend)
     d_pad = _d_pad(m_pad, n_pad)
     R = rows_per_lane(m_pad)
+    one_strip = strips(R, m_pad) == 1
     score = torch.empty(B, dtype=torch.int32, device=dev)
     n_ops = torch.empty(B, dtype=torch.int32, device=dev)
     q_ops = torch.empty((B, d_pad), dtype=torch.int16, device=dev)
@@ -308,14 +357,16 @@ def sw_align(qcodes, rcodes, qlens, rlens, mat, gap_open: int,
         _kernels.check(lib.kt_sw_align_plan(R, B, n_pad, ctypes.byref(warps),
                                             ctypes.byref(use_smem)),
                        "sw_align plan")
-        # direction words that do not fit in shared memory: global scratch
-        scratch = None if use_smem.value else torch.empty(
-            B * lib.kt_sw_align_pair_bytes(R, n_pad), dtype=torch.uint8,
-            device=dev)
+        # direction words that do not fit in shared memory, and a long
+        # query's strips and borders: global scratch
+        use = use_smem.value if one_strip else 0
+        scratch = None if use else torch.empty(
+            B * lib.kt_sw_align_pair_bytes(R, m_pad, n_pad),
+            dtype=torch.uint8, device=dev)
         rc = lib.kt_sw_align(
             qcodes.data_ptr(), rcodes.data_ptr(), qlens.data_ptr(),
             rlens.data_ptr(), mat.data_ptr(), B, m_pad, n_pad, d_pad, R,
-            int(gap_open), int(gap_extend), use_smem.value, warps.value,
+            int(gap_open), int(gap_extend), use, warps.value,
             None if scratch is None else scratch.data_ptr(),
             score.data_ptr(), q_ops.data_ptr(), r_ops.data_ptr(),
             n_ops.data_ptr(), torch.cuda.current_stream().cuda_stream)
@@ -324,15 +375,19 @@ def sw_align(qcodes, rcodes, qlens, rlens, mat, gap_open: int,
     return score, q_ops, r_ops, n_ops
 
 
+def padded(m_max: int, n_max: int):
+    """(m_pad, n_pad) of a batch whose longest query and reference have
+    m_max and n_max residues: W = m_pad + 1 a multiple of 128, n_pad a
+    multiple of 128 (swalign_pallas.py:277-285)."""
+    m_max, n_max = max(2, m_max), max(2, n_max)
+    return ((m_max + 1 + 127) // 128) * 128 - 1, ((n_max + 127) // 128) * 128
+
+
 def pad_pairs(qs: List[np.ndarray], rs: List[np.ndarray]):
-    """Host batch of LETTER_INDEX arrays in the JAX package's padded layout:
-    W = m_pad + 1 a multiple of 128, n_pad a multiple of 128
-    (swalign_pallas.py:277-285).  Returns numpy (qcodes uint8[B, m_pad],
-    rcodes uint8[B, n_pad], qlens int32[B], rlens int32[B])."""
-    m_max = max(2, max(len(q) for q in qs))
-    n_max = max(2, max(len(r) for r in rs))
-    m_pad = ((m_max + 1 + 127) // 128) * 128 - 1
-    n_pad = ((n_max + 127) // 128) * 128
+    """Host batch of LETTER_INDEX arrays in the JAX package's padded layout
+    (padded).  Returns numpy (qcodes uint8[B, m_pad], rcodes uint8[B,
+    n_pad], qlens int32[B], rlens int32[B])."""
+    m_pad, n_pad = padded(max(len(q) for q in qs), max(len(r) for r in rs))
     B = len(qs)
     qcodes = np.zeros((B, m_pad), dtype=np.uint8)
     rcodes = np.zeros((B, n_pad), dtype=np.uint8)
@@ -360,20 +415,46 @@ def _device_matrix(scores: MatrixScores, device) -> torch.Tensor:
     return mat
 
 
+def launch_cells(qlens: np.ndarray, rlens: np.ndarray, m_pad: int):
+    """(cells, padded cells) of one launch: the pairs' qlen * rlen, and the
+    rows the kernel sweeps for them, 32R every strip a pair's query takes,
+    times its rlen."""
+    R = rows_per_lane(m_pad)
+    q, r = qlens.astype(np.int64), rlens.astype(np.int64)
+    n_strips = np.maximum(1, -(-q // (32 * R)))
+    return int(q @ r), int(32 * R * (n_strips @ r))
+
+
 def sw_batch_dispatch(qs: List[np.ndarray], rs: List[np.ndarray],
-                      scores: MatrixScores, device):
+                      scores: MatrixScores, device, counts: dict = None):
     """Check the pair lengths on the host, upload the batch and enqueue the
     alignment on `device`; sw_batch_resolve finishes.  Nothing here waits
-    for the card.  Returns the device-side op arrays."""
+    for the card.  Returns the device-side op arrays.
+
+    The launch runs in a `kaamer.align.kernel:<cells>:<padded>:<bytes>`
+    span: its real and padded cells (launch_cells) and the bytes of its
+    inputs and outputs, in the name, which the saved trace keeps whole.
+    counts, where given, gains the launch (aln_launches, aln_cells,
+    aln_padded_cells)."""
     qcodes, rcodes, qlens, rlens = pad_pairs(qs, rs)
-    if len(qs):
-        check_lengths(int(qlens.max()), int(rlens.max()), qcodes.shape[1],
-                      rcodes.shape[1])
+    B, m_pad = qcodes.shape
+    n_pad = rcodes.shape[1]
+    if B:
+        check_lengths(int(qlens.max()), int(rlens.max()), m_pad, n_pad)
+    cells, padded = launch_cells(qlens, rlens, m_pad)
+    if counts is not None:
+        counts["aln_launches"] += 1
+        counts["aln_cells"] += cells
+        counts["aln_padded_cells"] += padded
+    # codes and lengths in, the matrix, scores, paths and their lengths out
+    nbytes = (B * (m_pad + n_pad + 16) + 4 * N_LETTERS * N_LETTERS
+              + 4 * B * _d_pad(m_pad, n_pad))
     qcodes, rcodes, qlens, rlens = upload_all((qcodes, rcodes, qlens, rlens),
                                               device)
-    return sw_align(qcodes, rcodes, qlens, rlens,
-                    _device_matrix(scores, device), scores.gap_open,
-                    scores.gap_extend, lengths_checked=True)
+    mat = _device_matrix(scores, device)
+    with span(f"kaamer.align.kernel:{cells}:{padded}:{nbytes}"):
+        return sw_align(qcodes, rcodes, qlens, rlens, mat, scores.gap_open,
+                        scores.gap_extend, lengths_checked=True)
 
 
 def sw_batch_resolve(handle) -> List[Tuple[int, list, list]]:

@@ -56,7 +56,7 @@ import torch
 
 from .. import codec, native
 from ..index.artifact import DBArtifact
-from ..ops import hotset
+from ..ops import hotset, swalign
 from ..ops.count import (count_topk, dedup_runs, expand_hybrid,
                          expand_run_bitmaps, member_bitmap_from_rows,
                          member_np, pack_bits, sort_rle, thread_launches)
@@ -771,11 +771,13 @@ class SearchEngine(PositionBitmapServing):
         # dispatched phase-2 chunks by kind, certificate re-run rows,
         # dispatched batches, blocking device-to-host reads (_to_host),
         # rows counted on the host (past CAP_MAX), hit rows whose
-        # position bitmaps the host worked out, and the chunks' rle_sorted
-        # kernel launches
+        # position bitmaps the host worked out, the chunks' rle_sorted
+        # kernel launches, and -aln's pairs, launches and cells
+        # (ops/swalign.ALIGN_COUNTS, counted by search/pipeline.py)
         self.stats = {"cold": 0, "hot": 0, "legacy": 0, "rerun_rows": 0,
                       "batches": 0, "syncs": 0, "host_rows": 0,
-                      "host_bitmap_rows": 0, "rle": 0}
+                      "host_bitmap_rows": 0, "rle": 0,
+                      **dict.fromkeys(swalign.ALIGN_COUNTS, 0)}
 
         # hot sets (engine.py:476-515): None => every run is cold
         self.hot_starts = None

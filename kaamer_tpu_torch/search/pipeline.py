@@ -14,7 +14,10 @@ The host half is the JAX package's, copied unchanged:
   fastq:      like nucleotide over read records
 
 -aln aligns the kept hits in flushes of ALIGN_FLUSH_PAIRS pairs on the
-engine's device (ops/swalign.py), translated hits included.
+engine's device (ops/swalign.py), translated hits included: each flush
+is enqueued under a `kaamer.align.dispatch` span and finished under a
+`kaamer.align.resolve` span, and its counts (swalign.ALIGN_COUNTS) go to
+engine.stats.
 
 Results travel one device batch at a time: every route turns a batch's
 counts into its results, and run_search into its response bytes, under
@@ -35,7 +38,7 @@ from ..io_formats.readers import (QueryLocation, QueryRecord,
 from . import results as fmt
 from ..ops import swalign
 from ..trace import span
-from .engine import QueryCounts, SearchEngine, _next_pow2
+from .engine import QueryCounts, SearchEngine, _next_pow2, _tally
 from .options import (DNA_QUERY, NUCLEOTIDE, PROTEIN, PROTEIN_QUERY, READS,
                       SearchOptions)
 from .orf import get_orf_tuples_batch, set_best_start_codon
@@ -545,33 +548,42 @@ def _aligned_results(engine: SearchEngine, batches, opts: SearchOptions):
 
 def _align_dispatch(engine: SearchEngine, buf: List[QueryResult],
                     opts: SearchOptions):
-    pairs = []
-    hit_refs = []
-    for qr in buf:
-        for h in qr.Hits:
-            if h.Key in qr.HitEntries:
-                pairs.append((qr.Query.Sequence,
-                              qr.HitEntries[h.Key].Sequence))
-                hit_refs.append(h)
-    handle = None
-    if pairs:
-        try:
-            handle = swalign.align_batch_dispatch(
-                pairs, engine.art.stats, opts.SubMatrix, opts.GapOpen,
-                opts.GapExtend, device=engine.device)
-        except swalign.NoMatrixError:
-            pass  # hits keep zero alignments (reference's untouched struct)
+    """Enqueue one flush's pairs; its counts go to engine.stats where the
+    engine keeps them."""
+    with span("kaamer.align.dispatch"):
+        pairs = []
+        hit_refs = []
+        for qr in buf:
+            for h in qr.Hits:
+                if h.Key in qr.HitEntries:
+                    pairs.append((qr.Query.Sequence,
+                                  qr.HitEntries[h.Key].Sequence))
+                    hit_refs.append(h)
+        handle = None
+        if pairs:
+            try:
+                handle = swalign.align_batch_dispatch(
+                    pairs, engine.art.stats, opts.SubMatrix, opts.GapOpen,
+                    opts.GapExtend, device=engine.device)
+            except swalign.NoMatrixError:
+                # hits keep zero alignments (reference's untouched struct)
+                pass
+            else:
+                for key, n in handle[-1].items():
+                    if key in engine.stats:
+                        _tally(engine.stats, key, n)
     return buf, hit_refs, handle
 
 
 def _align_resolve(flush) -> List[QueryResult]:
     buf, hit_refs, handle = flush
-    if handle is not None:
-        for h, res in zip(hit_refs, swalign.align_batch_resolve(handle)):
-            h.Alignment = res
-    for qr in buf:
-        # hits without a DB entry keep Alignment=None (zero BitScore); the
-        # sort is stable, so zero-score hits keep their kmatch order
-        qr.Hits.sort(key=lambda h: -h.Alignment.BitScore if h.Alignment
-                     else 0.0)
+    with span("kaamer.align.resolve"):
+        if handle is not None:
+            for h, res in zip(hit_refs, swalign.align_batch_resolve(handle)):
+                h.Alignment = res
+        for qr in buf:
+            # hits without a DB entry keep Alignment=None (zero BitScore);
+            # the sort is stable, so zero-score hits keep their kmatch order
+            qr.Hits.sort(key=lambda h: -h.Alignment.BitScore if h.Alignment
+                         else 0.0)
     return buf

@@ -27,7 +27,10 @@ Rules for the sites:
   `kaamer.request` span on the handler thread: the pipeline and the
   engine run on that thread.  Threads of native code (the ORF scanner's)
   open no spans.
-- Every name starts with `kaamer.`.
+- Every name starts with `kaamer.`.  A name may carry numbers of its
+  call after `:` (`kaamer.align.kernel:<cells>:<padded>:<bytes>`, one a
+  launch): the benchmark's trace reader keeps a range's name whole, but
+  nothing after a `#` and no args.
 """
 
 from __future__ import annotations

@@ -109,8 +109,9 @@ def test_plain_ops_match_pallas_and_host_dp():
 
 
 def test_routing_rule_counts_host_pairs():
-    """< 4 pairs or a sequence past 2048 residues go to the host DP and are
-    counted; a device batch is not."""
+    """Per pair: every pair within MAX_LEN runs on the device, in a batch
+    of three or with a 2049-residue query too; only a pair past MAX_LEN
+    goes to the host DP (counted when it runs)."""
     rng = np.random.default_rng(8)
     pairs = _pairs(rng, 4)
     stats = KStats(NumberOfAA=10**6)
@@ -120,12 +121,55 @@ def test_routing_rule_counts_host_pairs():
     assert tsw.HOST_DP_PAIRS == before
     few = tsw.align_batch_resolve(tsw.align_batch_dispatch(
         pairs[:3], stats, "blosum62", 11, 1, device="cpu"))
-    assert tsw.HOST_DP_PAIRS == before + 3
+    assert tsw.HOST_DP_PAIRS == before
     assert few == dev[:3]
     long_q = "".join(rng.choice(list(AA), size=2049))
-    handle = tsw.align_batch_dispatch([(long_q, long_q)] * 4, stats,
+    handle = tsw.align_batch_dispatch([(long_q, long_q[:40])], stats,
                                       "blosum62", 11, 1, device="cpu")
-    assert handle[3] is None  # left to the host DP
+    assert handle[3] is not None and handle[4] == []  # on the device
+    past = "".join(rng.choice(list(AA), size=swc.MAX_LEN + 1))
+    handle = tsw.align_batch_dispatch(pairs[:2] + [(pairs[0][0], past)],
+                                      stats, "blosum62", 11, 1, device="cpu")
+    assert handle[4] == [2]  # left to the host DP
+    assert handle[3][0] == [0, 1]
+    assert tsw.HOST_DP_PAIRS == before
     with pytest.raises(tsw.NoMatrixError):
         tsw.align_batch_dispatch(pairs, stats, "nosuch", 11, 1, device="cpu")
 
+
+def test_mixed_flush_equals_the_jax_host_dp():
+    """align_batch on a flush mixing pairs of 30-400 residues with pairs of
+    2,049-4,096 (one path crossing query row 2,048), held pair by pair
+    against the JAX package's host DP: score, q_ops and r_ops, then every
+    result field.  The one departure: where the JAX package's
+    result_from_ops overflows (a bit score of 1,024 or more), the port
+    gives the E-value 0, as Go's math.Pow (+Inf) does."""
+    from dataclasses import asdict
+
+    from test_torch_swalign_long import _mixed_flush
+
+    rng = np.random.default_rng(2049)
+    pairs = _mixed_flush(rng)
+    stats = KStats(NumberOfAA=316_000_000)
+    handle = tsw.align_batch_dispatch(pairs, stats, "blosum62", 11, 1,
+                                      device="cpu")
+    assert handle[3][0] == list(range(len(pairs))) and handle[4] == []
+    got = tsw.align_batch_resolve(handle)
+    ops = swc.sw_batch_resolve(handle[3][1])
+    overflows = 0
+    for (q, r), path, res in zip(pairs, ops, got):
+        score, q_ops, r_ops = host_sw._smith_waterman(
+            _codes(q), _codes(r), SCORES.sub_matrix, SCORES.gap_open,
+            SCORES.gap_extend)
+        assert path == (score, q_ops, r_ops)
+        try:
+            want = asdict(host_sw.result_from_ops(q, r, SCORES, q_ops, r_ops,
+                                                  stats))
+        except OverflowError:
+            overflows += 1
+            assert res.BitScore >= 1024 and res.EValue == 0.0
+            continue
+        assert asdict(res) == want
+    crossing = got[8]
+    assert crossing.QueryStart <= 2048 < crossing.QueryEnd
+    assert 0 < overflows < len(pairs)
