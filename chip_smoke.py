@@ -32,15 +32,22 @@ bench.py: the database comes from the port's own generator
      contigs of 4 genes each, JSON + positions + align=true), each twice
      (the second is the warm wall), counting the first pass's kernel
      launches from 0; R2 and R5 must launch sw_align, every request
-     rle_sorted, once a phase-2 chunk (engine.stats["rle"]); then R1, R2,
-     R3 and R5 from four threads at once, twice, each body's sha256 equal
-     to its serial body's;
-  5b. rle phase: the rle_sorted kernel (csrc/rle.cu) against its plain
+     rle_sorted, once a phase-2 chunk (engine.stats["rle"]: the launches
+     the wrapper made, and those that replayed CUDA graphs ran, as many
+     as their captures recorded); then R1, R2, R3 and R5 from four
+     threads at once, twice, each body's sha256 equal to its serial
+     body's;
+  5b. rle phase: R1 once more with graphs, under torch.profiler, which
+     records the rle_sorted_kernel runs inside the replayed graphs (at
+     most as many as were counted; the profiler can miss some); then the
+     engine without graphs serves R1 and R4, whose rle_sorted launches,
+     each one counted where it is made, must equal the graph pass's
+     counts; the rle_sorted kernel (csrc/rle.cu) against its plain
      version, exactly and in both of its modes, on the sorted keys of the
-     largest chunk of R1 (hot, 1M) and of R4 (reads) as the served engine
-     makes them, and at G = 1, n = 2^21 + 64 and G = 2048, n = 64; each
-     timed (call and device ms, the plain version's ms, the bound: bytes
-     over 3.35 TB/s);
+     largest chunk of R1 (hot, 1M) and of R4 (reads) of that eager pass,
+     and at G = 1, n = 2^21 + 64 and G = 2048, n = 64; each timed (call
+     and device ms, the plain version's ms, the bound: bytes over 3.35
+     TB/s);
   6. sync proof: dispatch_batch and align_batch_dispatch under
      torch.cuda.set_sync_debug_mode("error"), and schedule_batch under
      "warn", which must wait for the card exactly once (the totals);
@@ -892,15 +899,18 @@ def serve_phase(engine, reqs, card: str):
                   f"warm) [{card}]")
         host_dp = sw.HOST_DP_PAIRS - host_dp
         concurrent_requests(url, reqs, bodies, card)
-    print(f"main-path kernel launches per request (first pass): "
-          f"{per_request}; host-DP pairs (routing rule): {host_dp}")
+    print(f"main-path kernel launches per request (first pass; "
+          f"rle_sorted_replayed: those in replayed CUDA graphs, as recorded "
+          f"at capture): {per_request}; host-DP pairs (routing rule): "
+          f"{host_dp}")
     for name in ("R2", "R5"):
         check(per_request[name]["sw_align"] > 0,
               f"{name} never launched sw_align")
     for name in per_request:
-        check(per_request[name]["rle_sorted"] > 0,
+        launches[f"rle_{name}"] = (per_request[name]["rle_sorted"]
+                                   + per_request[name]["rle_sorted_replayed"])
+        check(launches[f"rle_{name}"] > 0,
               f"{name} never launched rle_sorted")
-    launches["rle_sorted_per_R1"] = per_request["R1"]["rle_sorted"]
     return launches, bodies
 
 
@@ -908,14 +918,38 @@ RLE_READ_BYTES = 8           # an entry's key
 RLE_WRITE_BYTES = {False: 8 + 4 + 1 + 1, True: 8 + 8}  # by rank-key mode
 
 
-def rle_phase(engine, reqs, card: str) -> dict:
-    """rle_sorted against rle_sorted_plain on the card, exactly, in both
-    modes, on the sorted keys of the largest chunk of R1 and of R4 as the
-    served engine makes them (captured from the requests), and on random
+def profiled_rle(url: str, req) -> int:
+    """The rle_sorted_kernel runs that torch.profiler records (CUPTI sees
+    the kernels of a replayed CUDA graph) while the server answers req."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, route, fields, _ = req
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 experimental_config=torch._C._profiler._ExperimentalConfig(
+                     profile_all_threads=True)) as prof:
+        post(url + route, {"type": "string", **fields})
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and "rle_sorted_kernel" in e.key)
+
+
+def rle_phase(engine, reqs, counted: dict, card: str) -> dict:
+    """R1 with graphs under torch.profiler: the rle_sorted_kernel runs it
+    records, against the launches counted (serve_phase's counted[
+    "rle_R1"]).  Then, with the engine's graphs off, R1 and R4 again:
+    each launch counted where it is made must equal serve_phase's counts.
+    Then rle_sorted against rle_sorted_plain on the card, exactly, in
+    both modes, on the sorted keys of the largest chunk of R1 and of R4
+    from that eager pass (which gives the served bytes), and on random
     keys at G = 1, n = 2^21 + 64 and G = 2048, n = 64; each timed in the
     mode its chunk used (R1: the rank-key mode of merge_hot_cold_tam).
     Returns the result dict of R1's chunk, with every case under
-    "configs"."""
+    "configs", R1's launches without graphs and its kernel runs that the
+    profiler recorded with graphs."""
     import torch
 
     from kaamer_tpu_torch.ops import count as ct
@@ -931,14 +965,40 @@ def rle_phase(engine, reqs, card: str) -> dict:
             return real(ks, rank_keys, skip_inj)
         return call
 
+    eager, profiled = {}, None
+    graphs, engine._graphs = engine._graphs, None
     with Served(engine) as url:
+        r1 = next(r for r in reqs if r[0] == "R1")
+        if graphs is not None:
+            engine._graphs = graphs
+            profiled = profiled_rle(url, r1)
+            engine._graphs = None
+            print(f"R1 with CUDA graphs under torch.profiler: "
+                  f"{profiled} rle_sorted_kernel runs recorded, "
+                  f"{counted['rle_R1']} counted [{card}]")
+            check(0 < profiled <= counted["rle_R1"],
+                  f"R1: the profiler recorded {profiled} rle_sorted_kernel "
+                  f"runs, {counted['rle_R1']} were counted")
         for name, route, fields, _ in reqs:
             if name in ("R1", "R4"):
                 ct.rle_sorted = hotset.rle_sorted = capture(name)
+                ct.reset_launches()
                 try:
                     post(url + route, {"type": "string", **fields})
                 finally:
                     ct.rle_sorted = hotset.rle_sorted = real
+                eager[name] = ct.launches["rle_sorted"]
+                check(ct.launches["rle_sorted_replayed"] == 0,
+                      f"{name} replayed a graph with the graphs off")
+                check(eager[name] == counted[f"rle_{name}"],
+                      f"{name}: {eager[name]} rle_sorted launches without "
+                      f"graphs, {counted[f'rle_{name}']} counted with them")
+    engine._graphs = graphs
+    print(f"rle_sorted launches without graphs, each counted at its launch: "
+          f"{eager}, equal to the counts with graphs [{card}]")
+    check(set(largest) == {"R1", "R4"},
+          f"the eager pass gave sorted keys of {sorted(largest)}, not R1 "
+          "and R4")
     gen = torch.Generator(device=engine.device).manual_seed(7)
     for G, n, rows in ((1, (1 << 21) + 64, 1 << 16), (2048, 64, 40)):
         r = torch.randint(0, rows, (G, n), generator=gen,
@@ -975,9 +1035,11 @@ def rle_phase(engine, reqs, card: str) -> dict:
               f"({cfg['bound_ms'] / cfg['device_ms']:.4f} of it), plain "
               f"torch {cfg['plain_ms']} ms; equal to the plain version in "
               f"both modes [{card}]")
+    check(configs[0]["case"] == "R1", "the first case is not R1's chunk")
     res = {k: configs[0][k] for k in ("ms", "device_ms", "plain_ms",
                                       "bound_ms", "bound_by")}
-    return {**res, "library_ms": None, "configs": configs}
+    return {**res, "library_ms": None, "configs": configs,
+            "launches_per_R1": eager["R1"], "profiled_per_R1": profiled}
 
 
 def concurrent_requests(url: str, reqs, bodies, card: str,
@@ -2070,12 +2132,16 @@ def main() -> int:
     print(f"hot engine over R1-R5 (two passes): chunks hot "
           f"{engine.stats['hot']}, cold {engine.stats['cold']}, legacy "
           f"{engine.stats['legacy']}; certificate re-run rows "
-          f"{engine.stats['rerun_rows']}")
+          f"{engine.stats['rerun_rows']}; CUDA graphs: keys "
+          f"{engine.stats['graph_keys']}, captures "
+          f"{engine.stats['graph_captures']}, replays "
+          f"{engine.stats['graph_replays']}")
     check(engine.stats["hot"] > 0, "no hot chunk was served")
+    check(engine.stats["graph_replays"] > 0, "no chunk replayed a graph")
     check(engine.stats["rle"] == engine.stats["hot"] + engine.stats["cold"]
           + engine.stats["legacy"], f"rle_sorted launches {engine.stats}")
     phase("serve")
-    rle = rle_phase(engine, reqs, card)
+    rle = rle_phase(engine, reqs, launches, card)
     phase("rle")
 
     sync_phase(engine, queries)
@@ -2132,7 +2198,7 @@ def main() -> int:
         {"name": "rle_sorted", "route": "cuda",
          "source": "kaamer_tpu_torch/csrc/rle.cu", "replaces": None,
          "launches": launches["rle_sorted"],
-         "launches_per_R1": launches["rle_sorted_per_R1"], **rle}] + [
+         "launches_replayed": launches["rle_sorted_replayed"], **rle}] + [
         {**row, "sharded_launches": sharded(row["name"].split()[1])}
         for row in probe_rows]}))
     print(smi)

@@ -29,9 +29,13 @@ from . import _kernels
 ROW_SENTINEL = 0xFFFFFFFF
 _KEY_SENTINEL = torch.iinfo(torch.int64).max
 
-# kernel launches by wrapper (not counting plain-version calls), and the
-# same launches by the thread that made them (thread_launches)
-launches = {"rle_sorted": 0}
+# kernel launches: "rle_sorted" those the wrapper made (not counting
+# plain-version calls or calls recorded into a CUDA graph), and
+# "rle_sorted_replayed" those that replayed CUDA graphs ran, as many as
+# were recorded into the graph when it was captured (count_replayed); the
+# same launches by the thread that made them (thread_launches), and those
+# it recorded into graphs (thread_recorded)
+launches = {"rle_sorted": 0, "rle_sorted_replayed": 0}
 _launch_lock = threading.Lock()
 _thread = threading.local()
 
@@ -42,8 +46,22 @@ def reset_launches() -> None:
 
 
 def thread_launches() -> int:
-    """rle_sorted kernel launches made so far by the calling thread."""
+    """rle_sorted kernel launches run so far for the calling thread, its
+    graph replays' included."""
     return getattr(_thread, "launches", 0)
+
+
+def thread_recorded() -> int:
+    """rle_sorted calls the calling thread recorded into CUDA graphs."""
+    return getattr(_thread, "recorded", 0)
+
+
+def count_replayed(n: int) -> None:
+    """Count a replayed CUDA graph's n rle_sorted launches (those recorded
+    when it was captured), on the calling thread too."""
+    with _launch_lock:
+        launches["rle_sorted_replayed"] += n
+    _thread.launches = thread_launches() + n
 
 
 def _rev_cummin(x: torch.Tensor) -> torch.Tensor:
@@ -262,6 +280,9 @@ def rle_sorted(ks: torch.Tensor, rank_keys: bool = False,
                                int(skip_inj), *ptrs,
                                torch.cuda.current_stream().cuda_stream)
     _kernels.check(rc, "rle_sorted")
+    if torch.cuda.is_current_stream_capturing():
+        _thread.recorded = thread_recorded() + 1
+        return outs
     with _launch_lock:
         launches["rle_sorted"] += 1
     _thread.launches = thread_launches() + 1

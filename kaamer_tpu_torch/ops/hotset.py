@@ -142,7 +142,7 @@ def _mm_f32(a: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
 
 
 def hot_matmul(W: torch.Tensor, M: torch.Tensor, max_w: int,
-               out_dtype=None) -> torch.Tensor:
+               out_dtype=None, out: torch.Tensor = None) -> torch.Tensor:
     """counts_hot[G, P] = W @ M, integer-exact (hotset.py:hot_matmul).
 
     W float32 integer-valued, every value <= max_w; M 0/1, float32 or
@@ -155,22 +155,35 @@ def hot_matmul(W: torch.Tensor, M: torch.Tensor, max_w: int,
     with float32 accumulation and output, recombined in float32 (integers
     < 2^24).  A float32 M multiplies in float32, which needs TF32 off on
     CUDA (TF32 rounds W above 2048).  The result is float32 unless
-    out_dtype says otherwise."""
+    out_dtype says otherwise.
+
+    out: a [G, P] tensor of the result's dtype to write it into (a
+    captured CUDA graph's static input); the product's last operation
+    writes there, through torch.mm's or torch.add's out=, with the same
+    kernels as without."""
+    dtype = torch.float32 if out_dtype is None else out_dtype
+    if out is not None and out.dtype != dtype:
+        raise ValueError(f"out is {out.dtype}, the result {dtype}")
     if M.dtype == torch.bfloat16:
         if max_w <= 256:
             Wb = W.to(torch.bfloat16)
-            out = Wb @ M if out_dtype == torch.bfloat16 else _mm_f32(Wb, M)
+            if dtype == torch.bfloat16:
+                return torch.mm(Wb, M, out=out)
+            res = _mm_f32(Wb, M)
         else:
             hi = torch.floor(W * (1.0 / 256.0))
             lo = W - hi * 256.0
-            out = (_mm_f32(lo.to(torch.bfloat16), M)
-                   + 256.0 * _mm_f32(hi.to(torch.bfloat16), M))
+            res = torch.add(_mm_f32(lo.to(torch.bfloat16), M),
+                            256.0 * _mm_f32(hi.to(torch.bfloat16), M),
+                            out=out if dtype == torch.float32 else None)
     else:
         if M.is_cuda and torch.backends.cuda.matmul.allow_tf32:
             raise RuntimeError("hot_matmul needs TF32 off: "
                                "torch.backends.cuda.matmul.allow_tf32 is True")
-        out = W.to(M.dtype) @ M
-    return out.to(torch.float32 if out_dtype is None else out_dtype)
+        res = torch.mm(W.to(M.dtype), M,
+                       out=out if dtype == M.dtype else None)
+    res = res.to(dtype)
+    return res if out is None or res is out else out.copy_(res)
 
 
 def _first_k_desc(vals: torch.Tensor, k: int):

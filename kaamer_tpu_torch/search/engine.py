@@ -36,6 +36,14 @@ engine.stats["syncs"].  Every phase-2 chunk ends in one run-length count
 engine.stats["rle"] counts its launches, so it equals hot + cold + legacy
 there (0 on the CPU, where the plain version runs).
 
+On a card, a batch dispatched with positions=False replays its phase-2
+chunks as CUDA graphs (graphs.py): a chunk shape's first chunk runs
+eagerly, its second captures the graph, and later ones replay it, each
+a few launches in place of ~190; engine.stats counts graph_keys,
+graph_captures and graph_replays.  A replay's rle_sorted launches are
+not seen one by one: stats["rle"] counts those recorded at its capture
+(ops/count.launches["rle_sorted_replayed"]).
+
 Spans (trace.span, recorded while a torch profiler runs):
 `kaamer.engine.schedule` around schedule_batch's body, and the parts
 the benchmark's idle split reads: upload and phase 1 (`.phase1`), the
@@ -63,6 +71,7 @@ from ..ops.count import (count_topk, dedup_runs, expand_hybrid,
 from ..ops.probe import probe_slices
 from ..trace import span
 from ..upload import upload, upload_all
+from . import graphs
 
 # ---------------------------------------------------------------------------
 # The JAX engine's host half (kaamer_tpu/search/engine.py), copied
@@ -372,30 +381,38 @@ def _phase2_grouped_impl(postings, offs, cum_s, wstart, cum_t, lens_l, *,
     return counts, hit_rows, pack_bits(found & (counts[:, :, None] > 0))
 
 
-def _hot_counts(M, hot_starts, offs, whot):
-    """counts_hot of a group: bf16 while counts <= L fit it exactly
+def _hot_dtype(L: int) -> torch.dtype:
+    """counts_hot's dtype: bf16 while counts <= L fit it exactly
     (L <= 256), float32 beyond (engine.py:1182)."""
-    L = offs.shape[1]
-    W = hotset.hot_weights(offs, whot, hot_starts)
-    return hotset.hot_matmul(
-        W, M, max_w=L,
-        out_dtype=torch.bfloat16 if L <= 256 else torch.float32)
+    return torch.bfloat16 if L <= 256 else torch.float32
+
+
+def _hot_gemm(W, M, L: int, out=None):
+    """counts_hot = W @ M of a group of queries of L positions, through
+    the module attribute hotset.hot_matmul; into out where given."""
+    return hotset.hot_matmul(W, M, max_w=L, out_dtype=_hot_dtype(L), out=out)
+
+
+def _hot_counts(M, hot_starts, offs, whot, gemm=_hot_gemm):
+    """counts_hot of a group: the hot-set weights, then gemm(W, M, L)
+    (graphs.ChunkGraphs passes one that splits a capture there)."""
+    return gemm(hotset.hot_weights(offs, whot, hot_starts), M, offs.shape[1])
 
 
 def _phase2_hot_impl(postings, M, hot_starts, offs, cum_s, wstart, whot,
                      cum_t, lens_l, *, cap_s: int, cap_t: int, k: int,
                      pack_w_bits: int = 0, k_cold: int = 0, run_start=None,
-                     MT=None, positions: bool = False):
+                     MT=None, positions: bool = False, gemm=_hot_gemm):
     """engine.py:_phase2_hot_impl in torch: two-tier cold expansion +
     dense hot matmul + threshold merge.  Returns (counts int32[G, k],
     hit_rows int64[G, k], exact bool[G]), and with positions=True (which
     needs run_start and MT) the packed position bitmaps uint8[G, k,
     L // 8].  Where the TAM keys cannot hold the row (pack_w_bits == 0,
     or P >= 2^(31 - bits)) the per-lane merge serves and exact is all
-    True, as in the JAX engine."""
+    True, as in the JAX engine.  gemm computes counts_hot (_hot_counts)."""
     rows, seg, _, w = expand_hybrid(postings, offs, cum_s, wstart, cum_t,
                                     lens_l, cap_s, cap_t)
-    counts_hot = _hot_counts(M, hot_starts, offs, whot)
+    counts_hot = _hot_counts(M, hot_starts, offs, whot, gemm)
     if pack_w_bits and M.shape[1] < (1 << (31 - pack_w_bits)):
         counts, hit_rows, exact = hotset.merge_hot_cold_tam(
             counts_hot, rows, w, k, pack_w_bits=pack_w_bits,
@@ -416,7 +433,7 @@ def _phase2_hot_impl(postings, M, hot_starts, offs, cum_s, wstart, whot,
 def _phase2_hot_legacy_impl(postings, M, hot_starts, offs, cum_s, wstart,
                             whot, cum_t, lens_l, *, cap_s: int, cap_t: int,
                             k: int, run_start=None, MT=None,
-                            positions: bool = False):
+                            positions: bool = False, gemm=_hot_gemm):
     """engine.py:_phase2_hot_legacy_impl in torch: the exact per-lane
     candidate-union merge, used to re-run rows whose TAM certificate
     fails.  Returns (counts int32[G, k], hit_rows int64[G, k]), and with
@@ -424,7 +441,7 @@ def _phase2_hot_legacy_impl(postings, M, hot_starts, offs, cum_s, wstart,
     rows, seg, _, w = expand_hybrid(postings, offs, cum_s, wstart, cum_t,
                                     lens_l, cap_s, cap_t)
     s, cold_counts, is_start = sort_rle(rows, weights=w)
-    counts_hot = _hot_counts(M, hot_starts, offs, whot)
+    counts_hot = _hot_counts(M, hot_starts, offs, whot, gemm)
     counts, hit_rows = hotset.merge_hot_cold(counts_hot, s, cold_counts,
                                              is_start, k)
     if not positions:
@@ -526,6 +543,31 @@ class _HostFetch:
     @classmethod
     def device_get(cls, tree, stats: Dict[str, int] = None):
         return [[cls._host(t, stats) for t in outs] for outs in tree]
+
+
+class _StackedRows:
+    """A batch's six phase-1 tables that phase 2 reads (offs, cum_s,
+    wstart, whot, cum_t, lens_l) as one int64[6, B + 1, L], stacked at
+    the first chunk that replays a graph, for one gather a chunk.  Row B
+    is the null row that a graph's pad rows read: slice start miss_start,
+    wstart 1, zeros elsewhere (_warm_p2's inputs)."""
+
+    def __init__(self, outs1, miss_start: int):
+        self._outs1 = outs1
+        self._miss = miss_start
+        self._t = None
+        self.null_row = int(outs1[0].shape[0])
+
+    def get(self) -> torch.Tensor:
+        if self._t is None:
+            offs, cum_s, wstart, _, whot, cum_t, lens_l = self._outs1[:7]
+            t = torch.nn.functional.pad(
+                torch.stack([offs, cum_s, wstart, whot, cum_t, lens_l]),
+                (0, 0, 0, 1))
+            t[0, self.null_row].fill_(self._miss)
+            t[2, self.null_row].fill_(1)
+            self._t = t
+        return self._t
 
 
 class _BatchIds:
@@ -772,11 +814,13 @@ class SearchEngine(PositionBitmapServing):
         # dispatched batches, blocking device-to-host reads (_to_host),
         # rows counted on the host (past CAP_MAX), hit rows whose
         # position bitmaps the host worked out, the chunks' rle_sorted
-        # kernel launches, and -aln's pairs, launches and cells
+        # kernel launches, chunk shapes first seen, CUDA graphs captured
+        # and replayed (graphs.py), and -aln's pairs, launches and cells
         # (ops/swalign.ALIGN_COUNTS, counted by search/pipeline.py)
         self.stats = {"cold": 0, "hot": 0, "legacy": 0, "rerun_rows": 0,
                       "batches": 0, "syncs": 0, "host_rows": 0,
-                      "host_bitmap_rows": 0, "rle": 0,
+                      "host_bitmap_rows": 0, "rle": 0, "graph_keys": 0,
+                      "graph_captures": 0, "graph_replays": 0,
                       **dict.fromkeys(swalign.ALIGN_COUNTS, 0)}
 
         # hot sets (engine.py:476-515): None => every run is cold
@@ -809,6 +853,21 @@ class SearchEngine(PositionBitmapServing):
         P = art.num_proteins
         self._k_cold = 64 if P <= (1 << 15) else (
             128 if P <= (1 << 18) else 1024)
+        # phase-2 chunks as replayed CUDA graphs, on a card
+        self._graphs = None
+        if self.device.type == "cuda":
+            self._graphs = graphs.ChunkGraphs(self.device,
+                                              self._gemm_bytes())
+
+    def _gemm_bytes(self) -> int:
+        """The largest counts_hot of any hot or legacy chunk: float32 at
+        the widest group the dense budget allows (the shortest L, 8),
+        capped by the widest group width, 2048, and at least a legacy
+        re-run's 64."""
+        if self.hot_starts is None:
+            return 0
+        G = max(min(self._hot_g_max(8), max(G_QUANTA)), 64)
+        return G * int(self.M.shape[1]) * 4
 
     def count_batch(self, seqs: Sequence[str], sizes: Sequence[int], k: int,
                     positions: bool = False) -> List[QueryCounts]:
@@ -886,6 +945,10 @@ class SearchEngine(PositionBitmapServing):
                                                    L, batch_ids, k_full)
             ts_l = ts_h.tolist()
             tt_l = tt_h.tolist()
+            # CUDA graphs: on a card, without bitmaps, outside a warmup
+            stacked = (_StackedRows(outs1, self.miss_start)
+                       if self._graphs is not None and not positions
+                       and not getattr(_WARMING, "on", False) else None)
             pending = []
             for rows, G_c, rerun, hot in chunks:
                 cap_s, cap_t = _tier_caps(rows, rerun, ts_l, tt_l)
@@ -901,12 +964,12 @@ class SearchEngine(PositionBitmapServing):
                         cs, ct = _tier_caps(sub, rerun, ts_l, tt_l)
                         pending.append((sub, self._dispatch_group(
                             outs1, sub, g_ok, cs, ct, k_full, L, positions,
-                            hot)))
+                            hot, stacked=stacked)))
                     continue
                 pending.append((rows, self._dispatch_group(
                     outs1, rows, G_c, cap_s, cap_t, k_full, L, positions,
-                    hot)))
-            rerun_ctx = (outs1, ts_l, tt_l, k_full, L, positions)
+                    hot, stacked=stacked)))
+            rerun_ctx = (outs1, ts_l, tt_l, k_full, L, positions, stacked)
             # [..., n_primary (set by prefetch_batch), the min_top it gated]
             return [pending, results, sizes, len(sizes), batch_ids,
                     rerun_ctx, None, None]
@@ -1014,7 +1077,7 @@ class SearchEngine(PositionBitmapServing):
         """Re-dispatch TAM-uncertified rows through the per-lane legacy
         merge in totals-sorted chunks at pow2 tier caps
         (engine.py:880-916)."""
-        outs1, ts_l, tt_l, k_full, L, positions = rerun_ctx
+        outs1, ts_l, tt_l, k_full, L, positions, stacked = rerun_ctx
         flagged = sorted(flagged, key=lambda i: -(ts_l[i] + 128 * tt_l[i]))
         out = []
         c0 = 0
@@ -1038,54 +1101,101 @@ class SearchEngine(PositionBitmapServing):
             cap_t = max(32, _next_pow2(max_t)) if max_t else 0
             out.append((rows, self._dispatch_group(
                 outs1, rows, G_c, min(cap_s, CAP_MAX), cap_t, k_full, L,
-                positions, hot=True, legacy=True)))
+                positions, hot=True, legacy=True, stacked=stacked)))
         return out
 
     def _dispatch_group(self, outs1, rows: List[int], G: int, cap_s: int,
                         cap_t: int, k_full: int, L: int, positions: bool,
-                        hot: bool = False, legacy: bool = False):
+                        hot: bool = False, legacy: bool = False,
+                        stacked: _StackedRows = None):
         """Enqueue one phase-2 chunk over the given batch rows; returns the
         item _finalize_pending reads: (outputs, pos_dev[, flagged]), where
         pos_dev marks outputs ending in packed position bitmaps and
         flagged hot chunks whose outputs carry the certificate at index 2.
         G is the chunk's planned width, which the JAX engine pads the
         chunk to: the bitmap gate reads it (the port dispatches only the
-        rows).  legacy=True routes through the exact per-lane merge."""
+        rows, or, replaying a CUDA graph, pads them to
+        graphs.pad_width).  legacy=True routes through the exact per-lane
+        merge.  stacked: the batch's tables where the chunk may replay a
+        graph (_replay_chunk), else None."""
         with span("kaamer.engine.chunk"):
-            idx = upload(np.asarray(rows, dtype=np.int64), self.device)
-            offs, cum_s, wstart, run_start, whot, cum_t, lens_l = (
-                t.index_select(0, idx) for t in outs1[:7])
             hot = hot and self.hot_starts is not None
+            kind = "legacy" if legacy else "hot" if hot else "cold"
             cap_e = cap_s + 128 * cap_t
             k2 = min(k_full, cap_e)
             # the hot path ranks k_full candidates (its dense top-k is not
             # cap-bounded), so its bitmap-cost check uses k_full, not k2
-            pos_dev = positions and _positions_on_device(
-                cap_e, k_full if hot or legacy else k2, L, G)
-            bitmaps = dict(run_start=run_start, positions=pos_dev)
-            if hot or legacy:
-                bitmaps["MT"] = self.MT
+            k = k_full if hot or legacy else k2
+            pos_dev = positions and _positions_on_device(cap_e, k, L, G)
+            _tally(self.stats, kind)
             n_rle = thread_launches()
-            if legacy:
-                _tally(self.stats, "legacy")
-                item = _phase2_hot_legacy_impl(
-                    self.postings, self.M, self.hot_starts, offs, cum_s,
-                    wstart, whot, cum_t, lens_l, cap_s=cap_s, cap_t=cap_t,
-                    k=k_full, **bitmaps), pos_dev
-            elif hot:
-                _tally(self.stats, "hot")
-                item = _phase2_hot_impl(
-                    self.postings, self.M, self.hot_starts, offs, cum_s,
-                    wstart, whot, cum_t, lens_l, cap_s=cap_s, cap_t=cap_t,
-                    k=k_full, pack_w_bits=self._pack_w_bits(L),
-                    k_cold=self._k_cold, **bitmaps), pos_dev, True
-            else:
-                _tally(self.stats, "cold")
-                item = _phase2_grouped_impl(
-                    self.postings, offs, cum_s, wstart, cum_t, lens_l,
-                    cap_s=cap_s, cap_t=cap_t, k=k2, **bitmaps), pos_dev, False
+            outs = None
+            if stacked is not None:
+                outs = self._replay_chunk(stacked, kind, rows, G, cap_s,
+                                          cap_t, k, L)
+            if outs is None:
+                idx = upload(np.asarray(rows, dtype=np.int64), self.device)
+                offs, cum_s, wstart, run_start, whot, cum_t, lens_l = (
+                    t.index_select(0, idx) for t in outs1[:7])
+                bitmaps = dict(run_start=run_start, positions=pos_dev)
+                if hot or legacy:
+                    bitmaps["MT"] = self.MT
+                if legacy:
+                    outs = _phase2_hot_legacy_impl(
+                        self.postings, self.M, self.hot_starts, offs, cum_s,
+                        wstart, whot, cum_t, lens_l, cap_s=cap_s,
+                        cap_t=cap_t, k=k, **bitmaps)
+                elif hot:
+                    outs = _phase2_hot_impl(
+                        self.postings, self.M, self.hot_starts, offs, cum_s,
+                        wstart, whot, cum_t, lens_l, cap_s=cap_s,
+                        cap_t=cap_t, k=k, pack_w_bits=self._pack_w_bits(L),
+                        k_cold=self._k_cold, **bitmaps)
+                else:
+                    outs = _phase2_grouped_impl(
+                        self.postings, offs, cum_s, wstart, cum_t, lens_l,
+                        cap_s=cap_s, cap_t=cap_t, k=k, **bitmaps)
             _tally(self.stats, "rle", thread_launches() - n_rle)
-            return item
+            return (outs, pos_dev) if legacy else (outs, pos_dev, hot)
+
+    def _replay_chunk(self, stacked: _StackedRows, kind: str,
+                      rows: List[int], G: int, cap_s: int, cap_t: int,
+                      k: int, L: int):
+        """The chunk's outputs from a replay of its CUDA graph
+        (graphs.ChunkGraphs.run: the same _phase2_*_impl, over the rows
+        padded with stacked's null row), or None where it runs eagerly."""
+        pw, kc = ((self._pack_w_bits(L), self._k_cold) if kind == "hot"
+                  else (0, 0))
+        n = len(rows)
+        key = graphs.graph_key(kind, G, n, L, cap_s, cap_t, k, pw, kc)
+        tiers = dict(cap_s=cap_s, cap_t=cap_t, k=k)
+        gemm = None
+        if kind == "cold":
+            def phase2(x, _):
+                return _phase2_grouped_impl(self.postings, x[0], x[1], x[2],
+                                            x[4], x[5], **tiers)
+        else:
+            gemm = graphs.Gemm(
+                lambda W, out: _hot_gemm(W, self.M, L, out=out),
+                _hot_dtype(L), int(self.M.shape[1]))
+            if kind == "hot":
+                def phase2(x, split):
+                    return _phase2_hot_impl(
+                        self.postings, self.M, self.hot_starts, *x,
+                        pack_w_bits=pw, k_cold=kc, gemm=split, **tiers)
+            else:
+                def phase2(x, split):
+                    return _phase2_hot_legacy_impl(
+                        self.postings, self.M, self.hot_starts, *x,
+                        gemm=split, **tiers)
+
+        def fill(x):
+            idx = np.full(key[1], stacked.null_row, dtype=np.int64)
+            idx[:n] = rows
+            torch.index_select(stacked.get(), 1, upload(idx, self.device),
+                               out=x)
+
+        return self._graphs.run(key, n, fill, phase2, self.stats, gemm)
 
     def _host_bitmaps_np(self, qc: QueryCounts,
                          hit_rows) -> Dict[int, np.ndarray]:
